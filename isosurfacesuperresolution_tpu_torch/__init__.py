@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the isosurface super-resolution system for one
+NVIDIA H100.
+
+The JAX package `isosurfacesuperresolution_tpu` is the reference; this
+package mirrors its subpackage and module names (``render/sweep.py`` <->
+``render/sweep.py`` and so on) and keeps its public layouts: NHWC images and
+(X, Y, Z) volumes.  It imports nothing from the JAX package.
+
+Entry points (`volume.analytic`, `infer.loadedmodel.LoadedModel`,
+`infer.pipeline`) run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without that request they raise.  Each hand-written
+CUDA kernel lives under ``csrc/`` and is built with ``nvcc`` at first use
+(`kernels.py`); on CPU tensors its wrapper runs the kernel's plain PyTorch
+version instead.
+
+Ported so far: the non-planar fused interactive frame
+(`infer/pipeline.FusedFrame`): sweep-rendered G-buffer through the CUDA
+march kernel (`render/sweep_march.py`), flow inpainting, the shift-blend
+warp of the previous 4x state, the trained EnhanceNet, clamp and
+screen-space shading.
+"""

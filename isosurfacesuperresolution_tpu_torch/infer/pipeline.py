@@ -1,0 +1,179 @@
+"""Fused interactive inference: sweep render -> inpaint -> warp -> network
+-> clamp -> shade.
+
+Counterpart of `make_fused_frame(..., planar="off")`, `initial_state` and
+`InferencePipeline` in the JAX package's `infer/pipeline.py`.  One frame
+runs on the grid's device without waiting for it: camera geometry is host
+math, the G-buffer never leaves the device, and the recurrent 4x state is
+a device tensor handed from frame to frame.  The first frame (``has_prev``
+False, a host bool) starts from the "unshaded" initial image.
+
+Only the non-planar engine is ported: ``planar="on"`` raises and
+``"auto"`` resolves to ``"off"`` until the planar engine
+(`infer/planar.py` of the JAX package) is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from isosurfacesuperresolution_tpu_torch.config import (
+    Config, RenderConfig, ShadingConfig)
+from isosurfacesuperresolution_tpu_torch.device import (
+    DeviceLike, resolve_device)
+from isosurfacesuperresolution_tpu_torch.models.generators import EnhanceNet
+from isosurfacesuperresolution_tpu_torch.models.videotools import (
+    flatten_high, initial_image)
+from isosurfacesuperresolution_tpu_torch.ops.inpaint import inpaint_flow
+from isosurfacesuperresolution_tpu_torch.ops.resize import resize
+from isosurfacesuperresolution_tpu_torch.ops.warp_fast import (
+    warp_upscale_fast)
+from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
+from isosurfacesuperresolution_tpu_torch.render.params import RenderParams
+from isosurfacesuperresolution_tpu_torch.render.raycast import (
+    gbuffer_to_low_input)
+from isosurfacesuperresolution_tpu_torch.render.shading import (
+    safe_normalize, screen_space_shading)
+from isosurfacesuperresolution_tpu_torch.render.sweep import (
+    render_gbuffer_sweep)
+from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
+
+
+class FrameState(NamedTuple):
+    """Recurrent state carried between frames."""
+
+    prev_high: torch.Tensor       # (1, H, W, 6) previous prediction
+    has_prev: bool                # False: first frame, use the initial image
+
+
+def clamp_output(prediction: torch.Tensor) -> torch.Tensor:
+    """Clamp the recurrent state as the reference trainer does
+    (`train/trainer.clamp_output`): mask to [-1, 1], normal normalized,
+    depth and AO to [0, 1]."""
+    return torch.cat([
+        torch.clamp(prediction[..., 0:1], -1.0, 1.0),
+        safe_normalize(prediction[..., 1:4]),
+        torch.clamp(prediction[..., 4:5], 0.0, 1.0),
+        torch.clamp(prediction[..., 5:6], 0.0, 1.0),
+    ], -1)
+
+
+def resolve_planar(planar: str) -> bool:
+    """Whether the planar engine runs: never yet ("auto" -> "off")."""
+    if planar == "on":
+        raise NotImplementedError("the planar engine is not ported yet")
+    if planar not in ("auto", "off"):
+        raise ValueError(f"planar must be auto, on or off, not {planar!r}")
+    return False
+
+
+def initial_state(cfg: Config, render_cfg: RenderConfig,
+                  planar: str = "auto",
+                  device: DeviceLike = None) -> FrameState:
+    resolve_planar(planar)
+    m = cfg.model
+    u = m.upscale_factor
+    prev = torch.zeros((1, render_cfg.height * u, render_cfg.width * u,
+                        m.output_channels), dtype=torch.float32,
+                       device=resolve_device(device))
+    return FrameState(prev_high=prev, has_prev=False)
+
+
+class FusedFrame:
+    """The fused frame: ``frame(grid, cam, cam_prev, state, rp=None) ->
+    (rgb (Hh, Wh, 3), low G-buffer (h, w, 12), new_state)``.
+
+    upscale_mode: "network" (the trained EnhanceNet), or "nearest" /
+    "bilinear" resizes of the low-res input.  The warp of the previous
+    state is always the shift-blend warp with a clamp of 8 px, as in the
+    JAX fused frame's default."""
+
+    def __init__(self, model: Optional[EnhanceNet], cfg: Config,
+                 render_cfg: RenderConfig, upscale_mode: str = "network",
+                 shading_cfg: Optional[ShadingConfig] = None,
+                 planar: str = "auto", device: DeviceLike = None):
+        resolve_planar(planar)
+        if upscale_mode not in ("network", "nearest", "bilinear"):
+            raise ValueError(f"unknown upscale mode {upscale_mode!r}")
+        if upscale_mode == "network" and model is None:
+            raise ValueError("upscale_mode='network' needs a model")
+        if render_cfg.renderer not in ("sweep", "sweep_pallas"):
+            raise ValueError(
+                f"unknown or unported renderer {render_cfg.renderer!r}")
+        self.device = resolve_device(device)
+        self.model = model
+        self.cfg = cfg
+        self.render_cfg = render_cfg
+        self.upscale_mode = upscale_mode
+        self.shading_cfg = (shading_cfg if shading_cfg is not None
+                            else cfg.shading)
+
+    @torch.no_grad()
+    def __call__(self, grid: BrickGrid, cam: CameraParams,
+                 cam_prev: CameraParams, state: FrameState,
+                 rp: Optional[RenderParams] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, FrameState]:
+        if grid.values.device.type != self.device.type:
+            raise ValueError(f"grid is on {grid.values.device}, the frame "
+                             f"runs on {self.device}")
+        m = self.cfg.model
+        u = m.upscale_factor
+        # no view-adaptive oversampling: the JAX fused frame renders with a
+        # traced camera, for which `adaptive_sweep_cfg` changes nothing
+        fr = render_gbuffer_sweep(grid, cam, cam_prev, self.render_cfg, rp)
+        low = gbuffer_to_low_input(fr)[None]                  # (1,h,w,5)
+        flow = inpaint_flow(fr[None, ..., 8:10], fr[None, ..., 3:4],
+                            iterations=8)
+        if self.upscale_mode == "network":
+            prev = (state.prev_high if state.has_prev else
+                    initial_image(low, m.output_channels, "unshaded",
+                                  False, u))
+            warped = warp_upscale_fast(prev, flow, u, special_mask=True,
+                                       max_disp=8)
+            net_in = torch.cat([low, flatten_high(warped, u)], -1)
+            pred, _ = self.model(net_in)
+            out_high = clamp_output(pred)
+        else:
+            out_high = resize(low, scale=float(u), method=self.upscale_mode)
+            out_high = torch.cat([out_high,
+                                  torch.ones_like(out_high[..., :1])], -1)
+        rgb = screen_space_shading(out_high, self.shading_cfg)[0]
+        return rgb, fr, FrameState(prev_high=out_high, has_prev=True)
+
+
+@dataclasses.dataclass
+class InferencePipeline:
+    """Stateful wrapper around `FusedFrame` that tracks the previous camera,
+    so each frame's flow is taken against it."""
+
+    model: Optional[EnhanceNet]
+    cfg: Config
+    render_cfg: RenderConfig
+    upscale_mode: str = "network"
+    shading_cfg: Optional[ShadingConfig] = None
+    render_params: Optional[RenderParams] = None
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self._frame = FusedFrame(self.model, self.cfg, self.render_cfg,
+                                 self.upscale_mode, self.shading_cfg,
+                                 device=self.device)
+        self.reset()
+
+    def reset(self):
+        self.state = initial_state(self.cfg, self.render_cfg,
+                                   device=self.device)
+        self._last_cam: Optional[CameraParams] = None
+
+    def frame(self, grid: BrickGrid, cam: CameraParams) -> torch.Tensor:
+        """Render + super-resolve + shade one frame; (Hh, Wh, 3) on the
+        device."""
+        cam_prev = self._last_cam if self._last_cam is not None else cam
+        rgb, _, self.state = self._frame(grid, cam, cam_prev, self.state,
+                                          self.render_params)
+        self._last_cam = cam
+        return rgb

@@ -1,0 +1,100 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so a
+build takes seconds).  Libraries go to ``build/cuda/`` at the repository
+root, named by a hash of the source and flags, and are written under a
+temporary name and renamed, so concurrent processes never load a partial
+file.  Nothing is built when a module is imported: the first launch (or
+`build`) does it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
+SOURCES = {"sweep_march": "sweep_march.cu"}
+# --fmad=false: every product and sum rounds on its own, as in the
+# reference's elementwise arithmetic; -Xptxas -v reports registers/spills
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under CUDA_HOME or PyTorch's idea
+    of the CUDA root.  Raises if there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    roots = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME
+        roots.append(CUDA_HOME)
+    except ImportError:
+        pass
+    for root in roots:
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:12]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one ``nvcc`` per source, all started together.  Returns
+    ``{name: {"seconds": s, "log": compiler output}}`` for those built;
+    raises with the compiler's output if one fails."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not library_path(n).is_file()]
+    if not todo:
+        return {}
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.time()
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    done, failed = {}, []
+    for n, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{n}: nvcc exited {p.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[n] = {"seconds": time.time() - t0, "log": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return done
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,95 @@
+"""Cameras: view/projection matrices and projection.
+
+Counterpart of the JAX package's `render/camera.py`, with the same
+conventions: right-handed world, the view matrix maps world -> camera with
+the camera looking down -z, GL-style projection with NDC depth in [-1, 1].
+
+A camera is host state: its vectors and matrices are float32 CPU tensors,
+so the per-frame geometry derived from it costs no device round trip.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+
+
+def normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
+                           min=eps)
+
+
+def look_at(eye: torch.Tensor, center: torch.Tensor, up: torch.Tensor
+            ) -> torch.Tensor:
+    """World -> view matrix (4, 4); camera at ``eye`` looking at ``center``."""
+    eye, center, up = (torch.as_tensor(a, dtype=torch.float32)
+                       for a in (eye, center, up))
+    f = normalize(center - eye)
+    s = normalize(torch.linalg.cross(f, up))
+    u = torch.linalg.cross(s, f)
+    rot = torch.stack([s, u, -f])
+    m = torch.eye(4, dtype=torch.float32)
+    m[:3, :3] = rot
+    m[:3, 3] = -rot @ eye
+    return m
+
+
+def perspective(fov_y_degrees: float, aspect: float,
+                z_near: float, z_far: float) -> torch.Tensor:
+    """GL-style perspective projection (4, 4), NDC depth in [-1, 1]."""
+    f = 1.0 / math.tan(math.radians(float(fov_y_degrees)) / 2.0)
+    m = torch.zeros((4, 4), dtype=torch.float32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = (z_far + z_near) / (z_near - z_far)
+    m[2, 3] = 2.0 * z_far * z_near / (z_near - z_far)
+    m[3, 2] = -1.0
+    return m
+
+
+def project(mvp: torch.Tensor, p_world: torch.Tensor) -> torch.Tensor:
+    """Project world points (..., 3) to NDC (..., 3) through a 4x4 MVP.
+
+    ``mvp`` is a host matrix; its entries enter as scalars, so the points
+    may live on any device without a copy of the matrix."""
+    m = mvp.tolist()
+    x, y, z = p_world[..., 0], p_world[..., 1], p_world[..., 2]
+    clip = [x * r[0] + y * r[1] + z * r[2] + r[3] for r in m]
+    return torch.stack(clip[:3], -1) / clip[3][..., None]
+
+
+@dataclasses.dataclass
+class CameraParams:
+    """Everything the renderer needs about one camera pose."""
+
+    eye: torch.Tensor          # (3,) float32, host
+    look_at_pt: torch.Tensor   # (3,)
+    up: torch.Tensor           # (3,)
+    fov_y_degrees: float
+    z_near: float = 0.1
+    z_far: float = 10.0
+
+    @classmethod
+    def create(cls, eye: Sequence[float],
+               look_at_pt: Sequence[float] = (0, 0, 0),
+               up: Sequence[float] = (0, 1, 0), fov_y_degrees: float = 45.0,
+               z_near: float = 0.1, z_far: float = 10.0) -> "CameraParams":
+        def vec(a):
+            return torch.as_tensor(a, dtype=torch.float32).reshape(3).cpu()
+        return cls(vec(eye), vec(look_at_pt), vec(up), float(fov_y_degrees),
+                   float(z_near), float(z_far))
+
+    def view_matrix(self) -> torch.Tensor:
+        return look_at(self.eye, self.look_at_pt, self.up)
+
+    def mvp(self, width: int, height: int) -> torch.Tensor:
+        proj = perspective(self.fov_y_degrees, width / height,
+                           self.z_near, self.z_far)
+        return proj @ self.view_matrix()
+
+    def normal_matrix(self) -> torch.Tensor:
+        """3x3 rotation mapping world normals to view space."""
+        return self.view_matrix()[:3, :3]

@@ -1,0 +1,281 @@
+"""Perspective shear-warp sweep renderer: the isosurface G-buffer.
+
+Counterpart of the JAX package's `render/sweep.py` (flat, non-tiled,
+no-AO form).  The volume axis most parallel to the view is the sweep axis;
+rays through the eye and a regular (s, t) grid on the entry-side base plane
+cross every slice plane in an axis-aligned scale + translate of that grid,
+so the march (`render/sweep_march.py`) resamples each slice with two 2-tap
+tent filters, refines the first crossing by inverse lerp and captures
+frustum-space gradients; the chain rule through the shear turns them into
+volume normals, and one homography maps the intermediate G-buffer to the
+image with a two-pass separable resample.
+
+All geometry that depends on the camera alone (major axis and flip, base
+plane, s/t grids, the per-slice table except its cull flag, the homography
+and the choice of warp order) is computed on the host in float32 and goes
+to the device in one copy; only the cull flag reads the device-side
+per-slice maximum.  Nothing in a frame waits for the device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+from isosurfacesuperresolution_tpu_torch.ops.separable_warp import (
+    homography_warp)
+from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
+from isosurfacesuperresolution_tpu_torch.render.params import RenderParams
+from isosurfacesuperresolution_tpu_torch.render.raycast import shade_hits
+from isosurfacesuperresolution_tpu_torch.render.sweep_march import march
+from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
+
+_PERMS = ((1, 2, 0), (0, 2, 1), (0, 1, 2))  # axis 0 / 1 / 2 as major (last)
+_F32 = torch.float32
+
+
+def upload(device: torch.device, *arrays: torch.Tensor
+           ) -> Tuple[torch.Tensor, ...]:
+    """Host float32 tensors -> views of one device buffer, moved in one
+    non-blocking copy from pinned memory (no host sync)."""
+    flat = torch.cat([a.reshape(-1).to(_F32) for a in arrays])
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    else:
+        flat = flat.to(device)
+    out, i = [], 0
+    for a in arrays:
+        out.append(flat[i:i + a.numel()].view(a.shape))
+        i += a.numel()
+    return tuple(out)
+
+
+class SweepPlan(NamedTuple):
+    """Host geometry of one view: everything the march and the warp need
+    that depends on the camera alone (float32 CPU tensors)."""
+
+    perm: Tuple[int, int, int]     # volume axes as (x, y, sweep)
+    flip: bool                     # march toward -z along the sweep axis
+    Z: int                         # volume size along the sweep axis
+    zss: int                       # slice planes per voxel
+    Sn: int
+    Tn: int
+    eye_p: torch.Tensor            # (3,) permuted voxel-space eye
+    kk: torch.Tensor               # base-plane distance from the eye
+    ds: torch.Tensor               # intermediate pixel size along s
+    dt: torch.Tensor
+    meta: torch.Tensor             # (K, 8), column 4 = validity only
+    s_grid: torch.Tensor           # (Sn,)
+    t_grid: torch.Tensor           # (Tn,)
+    hmat: torch.Tensor             # (3, 3) image -> intermediate pixels
+    swap: bool                     # warp the transposed intermediate
+
+
+def plan_sweep(grid: BrickGrid, cam: CameraParams, cfg: RenderConfig,
+               rp: RenderParams) -> SweepPlan:
+    """Major axis and flip, base plane, s/t grids, per-slice table and
+    homography for ``cam``, in float32 on the host."""
+    W, H = cfg.width, cfg.height
+    f = cam.look_at_pt - cam.eye
+    f = f / torch.linalg.norm(f)
+    axis = int(torch.argmax(torch.abs(f)))
+    flip = bool(f[axis] < 0)
+    tan_half = math.tan(math.radians(cam.fov_y_degrees) / 2.0)
+    aspect = W / H
+    B = torch.tensor([[2.0 * tan_half * aspect / W, 0.0, -tan_half * aspect],
+                      [0.0, -2.0 * tan_half / H, tan_half],
+                      [0.0, 0.0, -1.0]], dtype=_F32)
+    M = cam.view_matrix()[:3, :3].t() @ B       # (u, v, 1) -> world dirs
+    perm = _PERMS[axis]
+    eye_p = grid.world_to_voxel(cam.eye)[list(perm)]
+    ray_mat = M[list(perm), :]
+
+    res = grid.resolution
+    Z = res[perm[2]]
+    zss = cfg.sweep_z_supersample
+    K = Z * zss
+    Sn = int(round(W * cfg.sweep_oversample))
+    Tn = int(round(H * cfg.sweep_oversample))
+    sigma = -1.0 if flip else 1.0
+    iso = torch.tensor(rp.isovalue, dtype=_F32)
+
+    def z_c(m):
+        zc = (m + 0.5) / zss
+        return Z - zc if flip else zc
+
+    # base plane: entry side, at least half a voxel in front of the eye
+    k_min = 0.5
+    ez = eye_p[2]
+    z_entry = z_c(torch.tensor(0.0, dtype=_F32))
+    z_b = ez + sigma * torch.clamp(sigma * (z_entry - ez), min=k_min)
+    kk = z_b - ez
+    # image corners -> base-plane bounding box of the intermediate grid
+    corners = torch.tensor([[0.5, 0.5, 1.0], [W - 0.5, 0.5, 1.0],
+                            [0.5, H - 0.5, 1.0], [W - 0.5, H - 0.5, 1.0]],
+                           dtype=_F32)
+    d_c = corners @ ray_mat.t()
+    lam_c = kk / d_c[:, 2]
+    s_c = eye_p[0] + d_c[:, 0] * lam_c
+    t_c = eye_p[1] + d_c[:, 1] * lam_c
+    margin = 2.0
+    s_min, s_max = s_c.min() - margin, s_c.max() + margin
+    t_min, t_max = t_c.min() - margin, t_c.max() + margin
+    ds = (s_max - s_min) / Sn
+    dt = (t_max - t_min) / Tn
+    s_grid = s_min + (torch.arange(Sn, dtype=_F32) + 0.5) * ds
+    t_grid = t_min + (torch.arange(Tn, dtype=_F32) + 0.5) * dt
+
+    zc = z_c(torch.arange(K, dtype=_F32))
+    lam = (zc - ez) / kk
+    zf = torch.clamp(torch.floor(zc - 0.5), 0, Z - 2)
+    fz = torch.clamp(zc - 0.5 - zf, 0.0, 1.0)
+    valid = sigma * (zc - ez) > (k_min - 1e-3)
+    meta = torch.stack([zc, lam, zf, fz, valid.to(_F32),
+                        iso.expand(K), eye_p[0].expand(K),
+                        eye_p[1].expand(K)], 1)
+
+    # homography (u_c, v_c, 1) -> intermediate pixel coordinates
+    Hs = kk * ray_mat[0] + eye_p[0] * ray_mat[2]
+    Ht = kk * ray_mat[1] + eye_p[1] * ray_mat[2]
+    Hw = ray_mat[2]
+    hmat = torch.stack([(Hs - s_min * Hw) / ds, (Ht - t_min * Hw) / dt, Hw])
+    # the two-pass warp degenerates near an axis swap (u driving t): pick
+    # the pass order from the center Jacobian
+    uc = torch.tensor([W / 2.0, H / 2.0, 1.0], dtype=_F32)
+    wgt = hmat[2] @ uc
+    s_ctr = (hmat[0] @ uc) / wgt
+    t_ctr = (hmat[1] @ uc) / wgt
+    dsdu = (hmat[0, 0] - s_ctr * hmat[2, 0]) / wgt
+    dsdv = (hmat[0, 1] - s_ctr * hmat[2, 1]) / wgt
+    dtdu = (hmat[1, 0] - t_ctr * hmat[2, 0]) / wgt
+    dtdv = (hmat[1, 1] - t_ctr * hmat[2, 1]) / wgt
+    swap = bool(torch.abs(dsdu * dtdv) < torch.abs(dsdv * dtdu))
+    return SweepPlan(perm, flip, Z, zss, Sn, Tn, eye_p, kk, ds, dt, meta,
+                     s_grid, t_grid, hmat, swap)
+
+
+def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
+                 rp: RenderParams) -> dict:
+    """The keyword arguments of `sweep_march.march` for this view, on the
+    grid's device: one copy of the host geometry, plus the cull flag,
+    the only slice metadata that reads the device (the per-slice max)."""
+    dev = grid.values.device
+    meta, s_grid, t_grid = upload(dev, plan.meta, plan.s_grid, plan.t_grid)
+    # per-slice max in STORED units against the stored-unit isovalue
+    # (uint8 volumes would never cull against the physical one)
+    perm = plan.perm
+    vmax_z = torch.amax(grid.values,
+                        dim=tuple(a for a in range(3) if a != perm[2]))
+    iso_stored = torch.tensor(rp.isovalue, dtype=_F32)
+    if grid.value_scale != 1.0 or grid.value_offset != 0.0:
+        iso_stored = (iso_stored - grid.value_offset) / grid.value_scale
+    zf = meta[:, 2].long()
+    smax = torch.maximum(vmax_z[zf], vmax_z[zf + 1]).to(_F32)
+    meta[:, 4] *= (smax >= iso_stored.item()).to(_F32)
+    return dict(vol_zxy=grid.values.permute(perm[2], perm[0], perm[1]),
+                meta=meta, s_grid=s_grid, t_grid=t_grid, Sn=plan.Sn,
+                Tn=plan.Tn, dtype=getattr(torch, cfg.sweep_dtype),
+                scale=grid.value_scale, offset=grid.value_offset)
+
+
+def _sweep(grid: BrickGrid, plan: SweepPlan, cam: CameraParams,
+           cam_flow: CameraParams, cfg: RenderConfig,
+           rp: RenderParams) -> torch.Tensor:
+    dev = grid.values.device
+    W, H = cfg.width, cfg.height
+    args = march_inputs(grid, plan, cfg, rp)
+    m_hit, frac, g_s, g_t, g_z = march(**args)
+    s_dev, t_dev = args["s_grid"], args["t_grid"]
+    found = m_hit >= 0.0
+    perm, zss, Z, flip = plan.perm, plan.zss, plan.Z, plan.flip
+    sigma = -1.0 if flip else 1.0
+
+    # ---- hit positions and normals (chain rule through the shear) -----
+    e0, e1, e2 = plan.eye_p.tolist()
+    kk_, ds_, dt_ = plan.kk.item(), plan.ds.item(), plan.dt.item()
+    zc_star = (m_hit - 1.0 + frac + 0.5) / zss
+    if flip:
+        zc_star = Z - zc_star
+    lam_star = (zc_star - e2) / kk_
+    xs = e0 + lam_star * (s_dev[:, None] - e0)
+    ys = e1 + lam_star * (t_dev[None, :] - e1)
+    lam_safe = torch.where(torch.abs(lam_star) > 1e-6, lam_star, 1e-6)
+    dz_dm = (torch.tensor(sigma, dtype=_F32)
+             * torch.tensor(1.0 / zss, dtype=_F32)).item()
+    Vx = g_s / (lam_safe * ds_)
+    Vy = g_t / (lam_safe * dt_)
+    rel_z = zc_star - e2
+    rel_z = torch.where(torch.abs(rel_z) > 1e-6, rel_z, 1e-6)
+    Vz = g_z / dz_dm - Vx * (xs - e0) / rel_z - Vy * (ys - e1) / rel_z
+
+    inv = [0, 0, 0]
+    for i, a in enumerate(perm):
+        inv[a] = i
+    hit_p = (xs, ys, zc_star.expand_as(xs))
+    grad_p = (Vx, Vy, Vz)
+    hit_vox = torch.stack([hit_p[inv[a]] for a in range(3)], -1)
+    grad = torch.stack([grad_p[inv[a]] for a in range(3)], -1)
+    gnorm = torch.sqrt(torch.clamp(torch.sum(grad * grad, -1, keepdim=True),
+                                   min=1e-12))
+    normal_w = -grad / gnorm
+    hit_world = grid.voxel_to_world(hit_vox)
+    flat_hit = found.reshape(-1)
+    ao = torch.ones_like(flat_hit, dtype=_F32)
+    inter = shade_hits(hit_world.reshape(-1, 3), normal_w.reshape(-1, 3),
+                       flat_hit, ao, cam, cam_flow, cfg, W, H,
+                       rp=rp).reshape(plan.Sn, plan.Tn, 12)
+
+    if plan.swap:
+        out = homography_warp(inter.permute(1, 0, 2), plan.hmat[[1, 0, 2]],
+                              (W, H))
+    else:
+        out = homography_warp(inter, plan.hmat, (W, H))     # (W, H, 12)
+    out = out.permute(1, 0, 2)                               # (H, W, 12)
+
+    # post-warp fixups: binarize the mask, re-mask the silhouette blend,
+    # renormalize normals, ao = 1 outside
+    m_bin = out[..., 3:4] > 0.5
+    mvec = m_bin.to(_F32)
+    msafe = torch.clamp(out[..., 3:4], min=0.5)
+    nrm = out[..., 4:7] / msafe
+    nlen = torch.sqrt(torch.clamp(torch.sum(nrm * nrm, -1, keepdim=True),
+                                  min=1e-12))
+    nrm = torch.where(m_bin, nrm / nlen, 0.0)
+    frame = torch.cat([
+        out[..., 0:3] / msafe * mvec,
+        mvec,
+        nrm,
+        out[..., 7:8] / msafe * mvec,
+        out[..., 8:10] / msafe * mvec,
+        torch.where(m_bin, torch.clamp(out[..., 10:11], 0.0, 1.0), 1.0),
+        torch.ones_like(mvec),
+    ], -1)
+
+    if cfg.viewport is not None:
+        x0, y0, x1, y1 = cfg.viewport
+        xx = torch.arange(W, device=dev)[None, :, None]
+        yy = torch.arange(H, device=dev)[:, None, None]
+        in_vp = ((xx >= x0) & (yy >= y0) & (xx < x1) & (yy < y1)).to(_F32)
+        keep_ao = torch.where(in_vp > 0, frame[..., 10:11], 1.0)
+        frame = torch.cat([frame[..., :10] * in_vp, keep_ao,
+                           frame[..., 11:12]], -1)
+    return frame
+
+
+def render_gbuffer_sweep(grid: BrickGrid, cam: CameraParams,
+                         cam_flow: CameraParams, cfg: RenderConfig,
+                         rp: "RenderParams | None" = None) -> torch.Tensor:
+    """Sweep-rendered (H, W, 12) G-buffer on the grid's device; the
+    channel contract of the JAX package's `render_gbuffer`."""
+    if cfg.renderer not in ("sweep", "sweep_pallas"):
+        raise ValueError(f"unknown or unported renderer {cfg.renderer!r}")
+    if cfg.ao_samples > 0:
+        raise NotImplementedError("ambient occlusion is not ported yet; "
+                                  "set ao_samples=0")
+    if rp is None:
+        rp = RenderParams.from_config(cfg)
+    return _sweep(grid, plan_sweep(grid, cam, cfg, rp), cam, cam_flow, cfg,
+                  rp)
