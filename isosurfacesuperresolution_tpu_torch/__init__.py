@@ -13,9 +13,12 @@ CUDA kernel lives under ``csrc/`` and is built with ``nvcc`` at first use
 (`kernels.py`); on CPU tensors its wrapper runs the kernel's plain PyTorch
 version instead.
 
-Ported so far: the non-planar fused interactive frame
-(`infer/pipeline.FusedFrame`): sweep-rendered G-buffer through the CUDA
-march kernel (`render/sweep_march.py`), flow inpainting, the shift-blend
-warp of the previous 4x state, the trained EnhanceNet, clamp and
+Ported so far: the fused interactive frames (`infer/pipeline.FusedFrame`,
+`InferencePipeline`): the sweep-rendered G-buffer through the CUDA march
+kernel (`render/sweep_march.py`), optionally with a baked SH occlusion
+field (`render/ao_sweep.py`), flow inpainting, and either the interleaved
+network (the shift-blend warp of the 4x state, the trained EnhanceNet) or
+the sub-pixel-planar engine (`infer/planar.py`, whose post3 layer may run
+through the CUDA phase conv, `ops/phase_conv.py`), then clamp and
 screen-space shading.
 """

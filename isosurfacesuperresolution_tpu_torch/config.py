@@ -33,7 +33,13 @@ class RenderConfig:
     # storage/multiply type of the per-slice resample (accumulation f32)
     sweep_dtype: str = "float32"
     isovalue: float = 0.36
-    ao_samples: int = 0                # AO is not ported yet: must be 0
+    # ambient occlusion: 0 disables it (ao channel = 1).  The port renders
+    # AO from a baked SH field (`render/ao_sweep.attach_baked_ao`) only;
+    # hemisphere-ray AO is not ported
+    ao_samples: int = 0
+    ao_mode: str = "auto"              # auto | volume (baked field) | ray
+    ao_radius: float = 0.1             # world-space falloff radius
+    ao_bias: float = 1e-3              # ray-AO surface offset (unported)
     light_direction: Tuple[float, float, float] = (0.0, 0.0, 1.0)
     camera_light: bool = True
     ambient_color: Tuple[float, float, float] = (0.1, 0.1, 0.1)
@@ -79,6 +85,13 @@ class ModelConfig:
     num_features: int = 64
     compute_dtype: str = "float32"     # or "bfloat16"
     fused_upsample: bool = False
+    # planar engine (`infer/planar.py`): post3 as two row-phase convs
+    planar_split_tail: bool = False
+    # planar engine: post3 through the phase-conv kernel
+    # (`ops/phase_conv.py`); 64-feature nets only, others keep the dense tail
+    planar_phase_tail: bool = False
+    # planar engine: int8 post-training quantization (not ported: raises)
+    planar_int8: bool = False
 
 
 @dataclass(frozen=True)

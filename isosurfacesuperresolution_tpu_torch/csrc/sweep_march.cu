@@ -1,8 +1,8 @@
 // Sweep march for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_march_kernel` behind `march_pallas` in
-// isosurfacesuperresolution_tpu/render/sweep_pallas.py (its has_ao=False
-// form).  Same contract: a front-to-back march over the K slice planes of a
+// isosurfacesuperresolution_tpu/render/sweep_pallas.py, both forms
+// (has_ao=False and has_ao=True).  Same contract: a front-to-back march over the K slice planes of a
 // (Z, X, Y) slice-major volume; per slice a z-lerp of two (X, Y) planes, the
 // affine dequant (* scale + offset), the 2-tap tent resample
 // F = wx @ slice @ wy^T onto the (Sn, Tn) intermediate grid, the first
@@ -10,7 +10,11 @@
 // at the crossing: g_s, g_t = periodic central differences of the previous
 // slice's F (Fm1), g_z = F - Fm1.  A slice whose do-flag is 0 is skipped
 // and resets Fm1 to 0.  Outputs: m_hit, frac, g_s, g_t, g_z, each (Sn, Tn)
-// float32 (m_hit = -1 where no crossing).
+// float32 (m_hit = -1 where no crossing).  With a baked SH occlusion field
+// ao (Z, 4, X, Y), stored in the resample type, the kernel also writes
+// sh (4, Sn, Tn): the four channels resampled like the density (z-lerp in
+// float32 of the stored values, the same bf16 rounding points, no scale or
+// offset) at the crossing slice, 0 where the pixel never crosses.
 //
 // What bounds it on the H100: the volume (256^3 bf16 = 32 MB at the
 // interactive frame) is re-read for every slice plane from L2, which holds
@@ -27,7 +31,8 @@
 // float32 sums; the zero taps of the dense product add nothing.  Fm1 at the
 // four periodic neighbours is recomputed only at the crossing (0 when
 // slice k-1 was skipped or k = 0), and the thread leaves the loop once it
-// has hit, since nothing it outputs changes after that.  Built with
+// has hit, since nothing it outputs changes after that.  The AO capture
+// costs four more 2x2 samples per pixel, once, at its crossing.  Built with
 // --fmad=false so every product and sum rounds on its own.  Shared-memory
 // slice tiles and TMA are the next step.
 
@@ -56,9 +61,11 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// F at pixel (sg, tg) of the slice described by meta row m.
+// F at pixel (sg, tg) of the slice described by meta row m; plane z of
+// the field starts at vol + z * zstride.
 template <typename T, bool BF16>
-__device__ float sample_slice(const T* __restrict__ vol, int Z, int X, int Y,
+__device__ float sample_slice(const T* __restrict__ vol, size_t zstride,
+                              int Z, int X, int Y,
                               const float* __restrict__ m, float sg, float tg,
                               float scale, float offset) {
   const float lam = m[1];
@@ -72,9 +79,8 @@ __device__ float sample_slice(const T* __restrict__ vol, int Z, int X, int Y,
   // the tent max(0, 1 - |pos - (j + 0.5)|) is non-zero for j0 and j0 + 1
   const int jx0 = static_cast<int>(floorf(s_pos - 0.5f));
   const int jy0 = static_cast<int>(floorf(t_pos - 0.5f));
-  const size_t plane = static_cast<size_t>(X) * Y;
-  const T* p0 = vol + static_cast<size_t>(zf) * plane;
-  const T* p1 = p0 + plane;
+  const T* p0 = vol + static_cast<size_t>(zf) * zstride;
+  const T* p1 = p0 + zstride;
   float F = 0.f;
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
@@ -105,21 +111,35 @@ __device__ float sample_slice(const T* __restrict__ vol, int Z, int X, int Y,
   return F;
 }
 
-template <typename T, bool BF16>
+// the AO field is stored in the resample type
+template <bool BF16>
+struct AoStore {
+  using type = float;
+};
+template <>
+struct AoStore<true> {
+  using type = __nv_bfloat16;
+};
+
+template <typename T, bool BF16, bool HAS_AO>
 __global__ void __launch_bounds__(256)
-march_kernel(const T* __restrict__ vol, const float* __restrict__ meta,
+march_kernel(const T* __restrict__ vol,
+             const typename AoStore<BF16>::type* __restrict__ ao,
+             const float* __restrict__ meta,
              const float* __restrict__ s_grid,
              const float* __restrict__ t_grid, int K, int Z, int X, int Y,
              int Sn, int Tn, float scale, float offset,
              float* __restrict__ m_hit, float* __restrict__ frac,
              float* __restrict__ g_s, float* __restrict__ g_t,
-             float* __restrict__ g_z) {
+             float* __restrict__ g_z, float* __restrict__ sh) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = blockIdx.y * blockDim.y + threadIdx.y;
   if (s >= Sn || t >= Tn) return;
+  const size_t plane = static_cast<size_t>(X) * Y;
   const float sg = s_grid[s];
   const float tg = t_grid[t];
   float o_m = -1.f, o_frac = 0.f, o_gs = 0.f, o_gt = 0.f, o_gz = 0.f;
+  float o_sh[4] = {0.f, 0.f, 0.f, 0.f};
   float fm1 = 0.f;
   for (int k = 0; k < K; ++k) {
     const float* m = meta + static_cast<size_t>(k) * kMeta;
@@ -127,8 +147,8 @@ march_kernel(const T* __restrict__ vol, const float* __restrict__ meta,
       fm1 = 0.f;
       continue;
     }
-    const float F = sample_slice<T, BF16>(vol, Z, X, Y, m, sg, tg, scale,
-                                          offset);
+    const float F = sample_slice<T, BF16>(vol, plane, Z, X, Y, m, sg, tg,
+                                          scale, offset);
     const float iso = m[5];
     if (F >= iso) {
       const float d = F - fm1;
@@ -143,16 +163,25 @@ march_kernel(const T* __restrict__ vol, const float* __restrict__ meta,
         const int sm = s == 0 ? Sn - 1 : s - 1;
         const int tp = t + 1 == Tn ? 0 : t + 1;
         const int tm = t == 0 ? Tn - 1 : t - 1;
-        const float f_sp = sample_slice<T, BF16>(vol, Z, X, Y, mp, s_grid[sp],
-                                                 tg, scale, offset);
-        const float f_sm = sample_slice<T, BF16>(vol, Z, X, Y, mp, s_grid[sm],
-                                                 tg, scale, offset);
-        const float f_tp = sample_slice<T, BF16>(vol, Z, X, Y, mp, sg,
-                                                 t_grid[tp], scale, offset);
-        const float f_tm = sample_slice<T, BF16>(vol, Z, X, Y, mp, sg,
-                                                 t_grid[tm], scale, offset);
+        const float f_sp = sample_slice<T, BF16>(
+            vol, plane, Z, X, Y, mp, s_grid[sp], tg, scale, offset);
+        const float f_sm = sample_slice<T, BF16>(
+            vol, plane, Z, X, Y, mp, s_grid[sm], tg, scale, offset);
+        const float f_tp = sample_slice<T, BF16>(
+            vol, plane, Z, X, Y, mp, sg, t_grid[tp], scale, offset);
+        const float f_tm = sample_slice<T, BF16>(
+            vol, plane, Z, X, Y, mp, sg, t_grid[tm], scale, offset);
         o_gs = 0.5f * (f_sp - f_sm);
         o_gt = 0.5f * (f_tp - f_tm);
+      }
+      if (HAS_AO) {
+        // SH channels at the crossing slice: channel c of slice z is plane
+        // z * 4 + c of the field
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          o_sh[c] = sample_slice<typename AoStore<BF16>::type, BF16>(
+              ao + c * plane, 4 * plane, Z, X, Y, m, sg, tg, 1.f, 0.f);
+        }
       }
       break;
     }
@@ -164,45 +193,69 @@ march_kernel(const T* __restrict__ vol, const float* __restrict__ meta,
   g_s[o] = o_gs;
   g_t[o] = o_gt;
   g_z[o] = o_gz;
+  if (HAS_AO) {
+    const size_t n = static_cast<size_t>(Sn) * Tn;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sh[c * n + o] = o_sh[c];
+  }
 }
 
 template <typename T, bool BF16>
-void launch(const void* vol, const void* meta, const void* s_grid,
-            const void* t_grid, int K, int Z, int X, int Y, int Sn, int Tn,
-            float scale, float offset, void* m_hit, void* frac, void* g_s,
-            void* g_t, void* g_z, cudaStream_t stream) {
+void launch(const void* vol, const void* ao, const void* meta,
+            const void* s_grid, const void* t_grid, int K, int Z, int X,
+            int Y, int Sn, int Tn, float scale, float offset, void* m_hit,
+            void* frac, void* g_s, void* g_t, void* g_z, void* sh,
+            cudaStream_t stream) {
+  using A = typename AoStore<BF16>::type;
   const dim3 block(32, 8);
   const dim3 grid((Tn + block.x - 1) / block.x, (Sn + block.y - 1) / block.y);
-  march_kernel<T, BF16><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(vol), static_cast<const float*>(meta),
-      static_cast<const float*>(s_grid), static_cast<const float*>(t_grid),
-      K, Z, X, Y, Sn, Tn, scale, offset, static_cast<float*>(m_hit),
-      static_cast<float*>(frac), static_cast<float*>(g_s),
-      static_cast<float*>(g_t), static_cast<float*>(g_z));
+  const T* v = static_cast<const T*>(vol);
+  const A* a = static_cast<const A*>(ao);
+  const float* mt = static_cast<const float*>(meta);
+  const float* sg = static_cast<const float*>(s_grid);
+  const float* tg = static_cast<const float*>(t_grid);
+  float* o[6] = {static_cast<float*>(m_hit), static_cast<float*>(frac),
+                 static_cast<float*>(g_s), static_cast<float*>(g_t),
+                 static_cast<float*>(g_z), static_cast<float*>(sh)};
+  if (ao != nullptr) {
+    march_kernel<T, BF16, true><<<grid, block, 0, stream>>>(
+        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, o[0], o[1],
+        o[2], o[3], o[4], o[5]);
+  } else {
+    march_kernel<T, BF16, false><<<grid, block, 0, stream>>>(
+        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, o[0], o[1],
+        o[2], o[3], o[4], o[5]);
+  }
 }
 
 }  // namespace
 
 // store: 0 float32, 1 bfloat16, 2 uint8 volume; mm_bf16: round the
-// resample operands to bf16.  Returns the cudaGetLastError() code.
+// resample operands to bf16.  ao: null, or the (Z, 4, X, Y) SH field in
+// the resample type (float32, or bf16 when mm_bf16), and then sh receives
+// the (4, Sn, Tn) capture.  Returns the cudaGetLastError() code.
 extern "C" int sweep_march(const void* vol, int store, int mm_bf16,
-                           const void* meta, const void* s_grid,
-                           const void* t_grid, int K, int Z, int X, int Y,
-                           int Sn, int Tn, float scale, float offset,
-                           void* m_hit, void* frac, void* g_s, void* g_t,
-                           void* g_z, void* stream) {
+                           const void* ao, const void* meta,
+                           const void* s_grid, const void* t_grid, int K,
+                           int Z, int X, int Y, int Sn, int Tn, float scale,
+                           float offset, void* m_hit, void* frac, void* g_s,
+                           void* g_t, void* g_z, void* sh, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K < 1 || Z < 2 || X < 1 || Y < 1 || Sn < 1 || Tn < 1) {
+  if (K < 1 || Z < 2 || X < 1 || Y < 1 || Sn < 1 || Tn < 1 ||
+      (ao != nullptr && sh == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#define MARCH_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
+    offset, m_hit, frac, g_s, g_t, g_z, sh, st
   switch (store * 2 + (mm_bf16 ? 1 : 0)) {
-    case 0: launch<float, false>(vol, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, offset, m_hit, frac, g_s, g_t, g_z, st); break;
-    case 1: launch<float, true>(vol, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, offset, m_hit, frac, g_s, g_t, g_z, st); break;
-    case 2: launch<__nv_bfloat16, false>(vol, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, offset, m_hit, frac, g_s, g_t, g_z, st); break;
-    case 3: launch<__nv_bfloat16, true>(vol, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, offset, m_hit, frac, g_s, g_t, g_z, st); break;
-    case 4: launch<uint8_t, false>(vol, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, offset, m_hit, frac, g_s, g_t, g_z, st); break;
-    case 5: launch<uint8_t, true>(vol, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, offset, m_hit, frac, g_s, g_t, g_z, st); break;
+    case 0: launch<float, false>(MARCH_ARGS); break;
+    case 1: launch<float, true>(MARCH_ARGS); break;
+    case 2: launch<__nv_bfloat16, false>(MARCH_ARGS); break;
+    case 3: launch<__nv_bfloat16, true>(MARCH_ARGS); break;
+    case 4: launch<uint8_t, false>(MARCH_ARGS); break;
+    case 5: launch<uint8_t, true>(MARCH_ARGS); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef MARCH_ARGS
   return static_cast<int>(cudaGetLastError());
 }

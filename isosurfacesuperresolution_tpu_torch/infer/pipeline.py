@@ -1,16 +1,18 @@
 """Fused interactive inference: sweep render -> inpaint -> warp -> network
 -> clamp -> shade.
 
-Counterpart of `make_fused_frame(..., planar="off")`, `initial_state` and
+Counterpart of `make_fused_frame`, `resolve_planar`, `initial_state` and
 `InferencePipeline` in the JAX package's `infer/pipeline.py`.  One frame
 runs on the grid's device without waiting for it: camera geometry is host
-math, the G-buffer never leaves the device, and the recurrent 4x state is
-a device tensor handed from frame to frame.  The first frame (``has_prev``
+math, the G-buffer never leaves the device, and the recurrent state is a
+device tensor handed from frame to frame.  The first frame (``has_prev``
 False, a host bool) starts from the "unshaded" initial image.
 
-Only the non-planar engine is ported: ``planar="on"`` raises and
-``"auto"`` resolves to ``"off"`` until the planar engine
-(`infer/planar.py` of the JAX package) is ported.
+``planar``: "auto" runs the sub-pixel-planar engine (`infer/planar.py`)
+whenever the model configuration supports it, as in JAX; "on" requires it
+and "off" runs the interleaved network.  The planar frame returns
+channel-first RGB (3, Hh, Wh) and carries a (1, h, w, 96) nested state;
+`InferencePipeline.frame` returns (Hh, Wh, 3) either way.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from isosurfacesuperresolution_tpu_torch.config import (
     Config, RenderConfig, ShadingConfig)
 from isosurfacesuperresolution_tpu_torch.device import (
     DeviceLike, resolve_device)
+from isosurfacesuperresolution_tpu_torch.infer import planar as planar_mod
 from isosurfacesuperresolution_tpu_torch.models.generators import EnhanceNet
 from isosurfacesuperresolution_tpu_torch.models.videotools import (
     flatten_high, initial_image)
@@ -45,7 +48,8 @@ from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
 class FrameState(NamedTuple):
     """Recurrent state carried between frames."""
 
-    prev_high: torch.Tensor       # (1, H, W, 6) previous prediction
+    # (1, H, W, 6) previous prediction, or (1, h, w, 96) planar (nested)
+    prev_high: torch.Tensor
     has_prev: bool                # False: first frame, use the initial image
 
 
@@ -61,41 +65,51 @@ def clamp_output(prediction: torch.Tensor) -> torch.Tensor:
     ], -1)
 
 
-def resolve_planar(planar: str) -> bool:
-    """Whether the planar engine runs: never yet ("auto" -> "off")."""
-    if planar == "on":
-        raise NotImplementedError("the planar engine is not ported yet")
-    if planar not in ("auto", "off"):
+def resolve_planar(cfg: Config, upscale_mode: str, planar: str) -> bool:
+    """Whether the planar engine runs: "off" or a resize upscale mode never,
+    "auto" when `infer.planar.supports_planar` holds, "on" likewise but a
+    configuration it does not support raises ValueError."""
+    if planar not in ("auto", "on", "off"):
         raise ValueError(f"planar must be auto, on or off, not {planar!r}")
-    return False
+    if planar == "off" or upscale_mode != "network":
+        return False
+    ok = planar_mod.supports_planar(cfg.model)
+    if planar == "on" and not ok:
+        raise ValueError("planar engine does not support this model config")
+    return ok
 
 
 def initial_state(cfg: Config, render_cfg: RenderConfig,
-                  planar: str = "auto",
+                  upscale_mode: str = "network", planar: str = "auto",
                   device: DeviceLike = None) -> FrameState:
-    resolve_planar(planar)
     m = cfg.model
     u = m.upscale_factor
-    prev = torch.zeros((1, render_cfg.height * u, render_cfg.width * u,
-                        m.output_channels), dtype=torch.float32,
+    h, w = render_cfg.height, render_cfg.width
+    if resolve_planar(cfg, upscale_mode, planar):
+        shape = (1, h, w, m.output_channels * u * u)
+    else:
+        shape = (1, h * u, w * u, m.output_channels)
+    prev = torch.zeros(shape, dtype=torch.float32,
                        device=resolve_device(device))
     return FrameState(prev_high=prev, has_prev=False)
 
 
 class FusedFrame:
     """The fused frame: ``frame(grid, cam, cam_prev, state, rp=None) ->
-    (rgb (Hh, Wh, 3), low G-buffer (h, w, 12), new_state)``.
+    (rgb, low G-buffer (h, w, 12), new_state)``, rgb (Hh, Wh, 3), or
+    channel-first (3, Hh, Wh) from the planar engine.
 
     upscale_mode: "network" (the trained EnhanceNet), or "nearest" /
     "bilinear" resizes of the low-res input.  The warp of the previous
     state is always the shift-blend warp with a clamp of 8 px, as in the
-    JAX fused frame's default."""
+    JAX fused frame's default.  The planar engine's kernels, index tensors
+    and constants are built here, once, on the frame's device."""
 
     def __init__(self, model: Optional[EnhanceNet], cfg: Config,
                  render_cfg: RenderConfig, upscale_mode: str = "network",
                  shading_cfg: Optional[ShadingConfig] = None,
                  planar: str = "auto", device: DeviceLike = None):
-        resolve_planar(planar)
+        self.use_planar = resolve_planar(cfg, upscale_mode, planar)
         if upscale_mode not in ("network", "nearest", "bilinear"):
             raise ValueError(f"unknown upscale mode {upscale_mode!r}")
         if upscale_mode == "network" and model is None:
@@ -110,6 +124,13 @@ class FusedFrame:
         self.upscale_mode = upscale_mode
         self.shading_cfg = (shading_cfg if shading_cfg is not None
                             else cfg.shading)
+        self.planar_net = self.planar_tables = None
+        if self.use_planar:
+            self.planar_net = planar_mod.PlanarNet(model, cfg.model,
+                                                   device=self.device)
+            self.planar_tables = planar_mod.PlanarTables(
+                render_cfg.height, render_cfg.width,
+                cfg.model.output_channels, self.device)
 
     @torch.no_grad()
     def __call__(self, grid: BrickGrid, cam: CameraParams,
@@ -127,6 +148,22 @@ class FusedFrame:
         low = gbuffer_to_low_input(fr)[None]                  # (1,h,w,5)
         flow = inpaint_flow(fr[None, ..., 8:10], fr[None, ..., 3:4],
                             iterations=8)
+        if self.use_planar:
+            tables = self.planar_tables
+            prev = (state.prev_high if state.has_prev else
+                    planar_mod.initial_image_planar(
+                        low, m.output_channels, "unshaded", False, tables))
+            # the shift-blend runs in the network's type: its only consumer
+            # is the network input
+            warped = planar_mod.warp_planar(
+                prev, flow, special_mask=True, max_disp=8,
+                compute_dtype=getattr(torch, m.compute_dtype), tables=tables)
+            pred = self.planar_net(torch.cat([low, warped], -1))
+            out_planar = planar_mod.clamp_output_planar(pred)
+            rgb = planar_mod.planar_rgb_to_planes(
+                planar_mod.screen_space_shading_planar(
+                    out_planar, self.shading_cfg), tables)[0]
+            return rgb, fr, FrameState(prev_high=out_planar, has_prev=True)
         if self.upscale_mode == "network":
             prev = (state.prev_high if state.has_prev else
                     initial_image(low, m.output_channels, "unshaded",
@@ -164,9 +201,13 @@ class InferencePipeline:
                                  device=self.device)
         self.reset()
 
+    @property
+    def use_planar(self) -> bool:
+        return self._frame.use_planar
+
     def reset(self):
         self.state = initial_state(self.cfg, self.render_cfg,
-                                   device=self.device)
+                                   self.upscale_mode, device=self.device)
         self._last_cam: Optional[CameraParams] = None
 
     def frame(self, grid: BrickGrid, cam: CameraParams) -> torch.Tensor:
@@ -176,4 +217,6 @@ class InferencePipeline:
         rgb, _, self.state = self._frame(grid, cam, cam_prev, self.state,
                                           self.render_params)
         self._last_cam = cam
+        if self.use_planar:        # the planar frame emits (3, Hh, Wh)
+            rgb = rgb.permute(1, 2, 0)
         return rgb

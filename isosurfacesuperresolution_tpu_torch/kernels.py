@@ -22,12 +22,15 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
-SOURCES = {"sweep_march": "sweep_march.cu"}
-# --fmad=false: every product and sum rounds on its own, as in the
-# reference's elementwise arithmetic; -Xptxas -v reports registers/spills
+# kernel name -> (source, its own nvcc flags).  The march keeps every
+# product and sum separately rounded (--fmad=false), as in the reference's
+# elementwise arithmetic; the phase conv's bf16 products are exact in
+# float32, so it needs no such flag.
+SOURCES = {"sweep_march": ("sweep_march.cu", ["--fmad=false"]),
+           "phase_conv": ("phase_conv.cu", [])}
+# flags of every source; -Xptxas -v reports registers/spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -51,9 +54,14 @@ def find_nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def flags(name: str) -> list:
+    """The nvcc flags of kernel ``name``: the common ones and its own."""
+    return NVCC_FLAGS + SOURCES[name][1]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = (CSRC / SOURCES[name][0]).read_bytes()
+    tag = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:12]}.so"
 
 
@@ -73,7 +81,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for n in todo:
         out = library_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        cmd = [nvcc, *flags(n), "-o", str(tmp), str(CSRC / SOURCES[n][0])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

@@ -1,4 +1,4 @@
-"""Image upsampling and pixel unshuffle, NHWC.
+"""Image upsampling, pixel shuffle and unshuffle, NHWC.
 
 Counterpart of the JAX package's `ops/resize.py` for what the fused frame
 uses.  Bilinear upsampling follows half-pixel centers with clamped edges,
@@ -53,3 +53,16 @@ def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
     h, w = hr // r, wr // r
     y = x.reshape(b, h, r, w, r, c).permute(0, 1, 3, 5, 2, 4)
     return y.reshape(b, h, w, c * r * r)
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(..., H, W, C*r*r) -> (..., H*r, W*r, C), torch's PixelShuffle in
+    NHWC: input channel c*r*r + dy*r + dx feeds sub-pixel (dy, dx) of
+    output channel c."""
+    r = factor
+    *lead, h, w, c = x.shape
+    cout = c // (r * r)
+    y = x.reshape(*lead, h, w, cout, r, r)
+    n = len(lead)
+    y = y.permute(*range(n), n, n + 3, n + 1, n + 4, n + 2)
+    return y.reshape(*lead, h * r, w * r, cout)

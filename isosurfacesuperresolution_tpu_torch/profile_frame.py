@@ -1,10 +1,20 @@
-"""Profile the port's fused 1080p frame on the card.
+"""Profile the port's fused 1080p frames on the card.
 
-    python -m isosurfacesuperresolution_tpu_torch.profile_frame [--frames N]
+    python -m isosurfacesuperresolution_tpu_torch.profile_frame \
+        [--frames N] [--variants planar,phase,phase_ao,nonplanar]
 
-Drives `InferencePipeline` as the interactive frame does (trained
-run00017 EnhanceNet, 256^3 blobs, 480x270 -> 1920x1080, bf16 sweep,
-orbit steps of 0.03 rad) and prints:
+Each variant drives the interactive frame (trained run00017 EnhanceNet,
+256^3 blobs, 480x270 -> 1920x1080, bf16 sweep, orbit steps of 0.03 rad):
+
+* ``planar``: run00017 as it is through `InferencePipeline` (planar
+  "auto" -> the planar engine, float32, dense tail);
+* ``phase``: compute_dtype bfloat16 with the phase-conv tail (the frame
+  `bench.py --phase` times);
+* ``phase_ao``: ``phase`` on the grid with the baked SH occlusion field
+  (ao_samples 64, ao_mode "volume");
+* ``nonplanar``: the interleaved network (planar "off"), float32.
+
+For each it prints:
 
 * host syncs inside the timed frames (`torch.cuda.set_sync_debug_mode`),
   which should be none;
@@ -19,20 +29,25 @@ Float32 matmuls and convolutions run without TF32.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
+import time
 import warnings
 from pathlib import Path
 
 import torch
 
-from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+from isosurfacesuperresolution_tpu_torch.config import Config, RenderConfig
 from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import LoadedModel
 from isosurfacesuperresolution_tpu_torch.infer.pipeline import (
-    InferencePipeline)
+    FusedFrame, InferencePipeline, initial_state)
+from isosurfacesuperresolution_tpu_torch.render.ao_sweep import (
+    attach_baked_ao)
 from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
 from isosurfacesuperresolution_tpu_torch.volume import analytic
 
 RUN_DIR = Path(__file__).resolve().parent.parent / "artifacts" / "run00017"
+VARIANTS = ("planar", "phase", "phase_ao", "nonplanar")
 
 
 def cam_at(ang: float) -> CameraParams:
@@ -40,25 +55,12 @@ def cam_at(ang: float) -> CameraParams:
                                 -1.7 * math.cos(ang)))
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=10)
-    args = ap.parse_args()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(torch.cuda.get_device_name(0), flush=True)
-
-    lm = LoadedModel.from_run_dir(str(RUN_DIR))
-    cfg = RenderConfig(width=480, height=270, isovalue=0.5, ao_samples=0,
-                       renderer="sweep_pallas", sweep_oversample=1.25,
-                       sweep_dtype="bfloat16")
-    pipe = InferencePipeline(lm.model, lm.cfg, cfg)
-    grid = analytic.blobs_volume(256, num_blobs=8)
+def profile(step, n: int) -> None:
+    """Time and profile ``step(i)``, the i-th frame of an orbit."""
     for i in range(3):                                   # warm-up
-        pipe.frame(grid, cam_at(0.03 * i))
+        step(i)
     torch.cuda.synchronize()
 
-    n = args.frames
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -66,7 +68,7 @@ def main() -> None:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for i in range(n):
-            pipe.frame(grid, cam_at(0.03 * (3 + i)))
+            step(3 + i)
         end.record()
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -77,11 +79,11 @@ def main() -> None:
     frame_ms = start.elapsed_time(end) / n
     print(f"{frame_ms:.3f} ms/frame over {n} frames (CUDA events)")
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         for i in range(n):
-            pipe.frame(grid, cam_at(0.03 * (3 + n + i)))
+            step(3 + n + i)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -95,6 +97,55 @@ def main() -> None:
     print("device ms/frame  launches/frame  kernel")
     for ms, count, name in rows[:25]:
         print(f"{ms / n:14.4f}  {count / n:14.1f}  {name[:110]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--variants", default=",".join(VARIANTS[:3]),
+                    help=f"comma-separated, of {', '.join(VARIANTS)}")
+    args = ap.parse_args()
+    variants = args.variants.split(",")
+    unknown = set(variants) - set(VARIANTS)
+    if unknown:
+        ap.error(f"unknown variants {sorted(unknown)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(torch.cuda.get_device_name(0), flush=True)
+
+    lm = LoadedModel.from_run_dir(str(RUN_DIR))
+    render_cfg = RenderConfig(width=480, height=270, isovalue=0.5,
+                              ao_samples=0, renderer="sweep_pallas",
+                              sweep_oversample=1.25, sweep_dtype="bfloat16")
+    grid = analytic.blobs_volume(256, num_blobs=8)
+    phase_cfg = Config(model=dataclasses.replace(
+        lm.cfg.model, compute_dtype="bfloat16", planar_phase_tail=True))
+    for variant in variants:
+        print(f"== {variant}", flush=True)
+        cfg, rcfg, g = lm.cfg, render_cfg, grid
+        if variant in ("phase", "phase_ao"):
+            cfg = phase_cfg
+        if variant == "phase_ao":
+            torch.cuda.synchronize()
+            t = time.time()
+            g = attach_baked_ao(grid, 0.5, 0.1)
+            torch.cuda.synchronize()
+            print(f"AO bake {time.time() - t:.3f} s (not in the frames)")
+            rcfg = render_cfg.replace(ao_samples=64, ao_mode="volume")
+        if variant == "nonplanar":
+            # the interleaved network: the fused frame with planar "off"
+            ff = FusedFrame(lm.model, cfg, rcfg, planar="off")
+            st = [initial_state(cfg, rcfg, planar="off")]
+
+            def step(i, ff=ff, st=st, g=g):
+                st[0] = ff(g, cam_at(0.03 * i),
+                           cam_at(0.03 * max(i - 1, 0)), st[0])[2]
+        else:
+            pipe = InferencePipeline(lm.model, cfg, rcfg)
+
+            def step(i, pipe=pipe, g=g):
+                pipe.frame(g, cam_at(0.03 * i))
+        profile(step, args.frames)
 
 
 if __name__ == "__main__":

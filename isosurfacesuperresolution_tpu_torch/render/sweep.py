@@ -1,14 +1,17 @@
 """Perspective shear-warp sweep renderer: the isosurface G-buffer.
 
-Counterpart of the JAX package's `render/sweep.py` (flat, non-tiled,
-no-AO form).  The volume axis most parallel to the view is the sweep axis;
-rays through the eye and a regular (s, t) grid on the entry-side base plane
+Counterpart of the JAX package's `render/sweep.py` (flat, non-tiled
+form, without AO or with a baked full-resolution AO field).  The volume
+axis most parallel to the view is the sweep axis; rays through the eye
+and a regular (s, t) grid on the entry-side base plane
 cross every slice plane in an axis-aligned scale + translate of that grid,
 so the march (`render/sweep_march.py`) resamples each slice with two 2-tap
 tent filters, refines the first crossing by inverse lerp and captures
 frustum-space gradients; the chain rule through the shear turns them into
 volume normals, and one homography maps the intermediate G-buffer to the
-image with a two-pass separable resample.
+image with a two-pass separable resample.  With a baked SH occlusion
+field (`render/ao_sweep.attach_baked_ao`) the march also captures the
+field at the hit plane and the AO channel is ``ao_from_sh(sh, normal)``.
 
 All geometry that depends on the camera alone (major axis and flip, base
 plane, s/t grids, the per-slice table except its cull flag, the homography
@@ -27,6 +30,7 @@ import torch
 from isosurfacesuperresolution_tpu_torch.config import RenderConfig
 from isosurfacesuperresolution_tpu_torch.ops.separable_warp import (
     homography_warp)
+from isosurfacesuperresolution_tpu_torch.render.ao_sweep import ao_from_sh
 from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
 from isosurfacesuperresolution_tpu_torch.render.params import RenderParams
 from isosurfacesuperresolution_tpu_torch.render.raycast import shade_hits
@@ -157,11 +161,28 @@ def plan_sweep(grid: BrickGrid, cam: CameraParams, cfg: RenderConfig,
                      s_grid, t_grid, hmat, swap)
 
 
+def ao_field_zcxy(grid: BrickGrid, perm: Tuple[int, int, int]
+                  ) -> torch.Tensor:
+    """The grid's baked (X, Y, Z, 4) SH field as a (Z', 4, X', Y') view in
+    the march's axis order; a uint8 field is dequantized first (float32,
+    per-channel scale and offset), as the JAX package's flat path does.
+    The march copies the view into its own contiguous storage."""
+    ao = grid.ao_sh
+    if ao.dtype == torch.uint8:
+        # host scalars per channel: no host-to-device copy in the frame
+        scale = torch.tensor(grid.ao_scale, dtype=_F32).expand(4).tolist()
+        offset = torch.tensor(grid.ao_offset, dtype=_F32).expand(4).tolist()
+        ao = torch.stack([ao[..., c].to(_F32) * scale[c] + offset[c]
+                          for c in range(4)], -1)
+    return ao.permute(perm[2], 3, perm[0], perm[1])
+
+
 def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
-                 rp: RenderParams) -> dict:
+                 rp: RenderParams, use_ao_field: bool = False) -> dict:
     """The keyword arguments of `sweep_march.march` for this view, on the
     grid's device: one copy of the host geometry, plus the cull flag,
-    the only slice metadata that reads the device (the per-slice max)."""
+    the only slice metadata that reads the device (the per-slice max),
+    and with ``use_ao_field`` the baked SH field in the march's order."""
     dev = grid.values.device
     meta, s_grid, t_grid = upload(dev, plan.meta, plan.s_grid, plan.t_grid)
     # per-slice max in STORED units against the stored-unit isovalue
@@ -178,16 +199,17 @@ def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
     return dict(vol_zxy=grid.values.permute(perm[2], perm[0], perm[1]),
                 meta=meta, s_grid=s_grid, t_grid=t_grid, Sn=plan.Sn,
                 Tn=plan.Tn, dtype=getattr(torch, cfg.sweep_dtype),
-                scale=grid.value_scale, offset=grid.value_offset)
+                scale=grid.value_scale, offset=grid.value_offset,
+                ao_zcxy=ao_field_zcxy(grid, perm) if use_ao_field else None)
 
 
 def _sweep(grid: BrickGrid, plan: SweepPlan, cam: CameraParams,
            cam_flow: CameraParams, cfg: RenderConfig,
-           rp: RenderParams) -> torch.Tensor:
+           rp: RenderParams, use_ao_field: bool) -> torch.Tensor:
     dev = grid.values.device
     W, H = cfg.width, cfg.height
-    args = march_inputs(grid, plan, cfg, rp)
-    m_hit, frac, g_s, g_t, g_z = march(**args)
+    args = march_inputs(grid, plan, cfg, rp, use_ao_field)
+    m_hit, frac, g_s, g_t, g_z, *sh = march(**args)
     s_dev, t_dev = args["s_grid"], args["t_grid"]
     found = m_hit >= 0.0
     perm, zss, Z, flip = plan.perm, plan.zss, plan.Z, plan.flip
@@ -223,7 +245,11 @@ def _sweep(grid: BrickGrid, plan: SweepPlan, cam: CameraParams,
     normal_w = -grad / gnorm
     hit_world = grid.voxel_to_world(hit_vox)
     flat_hit = found.reshape(-1)
-    ao = torch.ones_like(flat_hit, dtype=_F32)
+    if use_ao_field:
+        # baked SH-L1 occlusion captured at the hit plane
+        ao = ao_from_sh(sh[0].permute(1, 2, 0), normal_w).reshape(-1)
+    else:
+        ao = torch.ones_like(flat_hit, dtype=_F32)
     inter = shade_hits(hit_world.reshape(-1, 3), normal_w.reshape(-1, 3),
                        flat_hit, ao, cam, cam_flow, cfg, W, H,
                        rp=rp).reshape(plan.Sn, plan.Tn, 12)
@@ -272,10 +298,23 @@ def render_gbuffer_sweep(grid: BrickGrid, cam: CameraParams,
     channel contract of the JAX package's `render_gbuffer`."""
     if cfg.renderer not in ("sweep", "sweep_pallas"):
         raise ValueError(f"unknown or unported renderer {cfg.renderer!r}")
-    if cfg.ao_samples > 0:
-        raise NotImplementedError("ambient occlusion is not ported yet; "
-                                  "set ao_samples=0")
+    has_baked = grid.ao_sh is not None
+    use_ao_field = (cfg.ao_samples > 0 and has_baked
+                    and cfg.ao_mode in ("auto", "volume"))
+    if cfg.ao_mode == "volume" and cfg.ao_samples > 0 and not has_baked:
+        raise ValueError("ao_mode='volume' needs a baked occlusion field; "
+                         "call render.ao_sweep.attach_baked_ao(grid, "
+                         "isovalue, ao_radius)")
+    if cfg.ao_samples > 0 and not use_ao_field:
+        raise NotImplementedError(
+            "hemisphere-ray AO is not ported (ROADMAP.md, queue A): bake "
+            "the field with render.ao_sweep.attach_baked_ao, or set "
+            "ao_samples=0")
+    if use_ao_field and grid.ao_downsample > 1:
+        raise NotImplementedError(
+            "a coarse AO field (ao_downsample > 1) is not ported on the "
+            "flat path (ROADMAP.md, queue A): bake with keep_coarse=False")
     if rp is None:
         rp = RenderParams.from_config(cfg)
     return _sweep(grid, plan_sweep(grid, cam, cfg, rp), cam, cam_flow, cfg,
-                  rp)
+                  rp, use_ao_field)

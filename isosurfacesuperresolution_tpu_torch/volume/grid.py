@@ -8,13 +8,18 @@ yet, so this `BrickGrid` holds the dense values and the transform:
   bfloat16 or uint8 (physical = stored * ``value_scale`` + ``value_offset``);
 * ``bbox_min`` / ``bbox_max``: (3,) float32 world bounds, kept on the host
   because only camera geometry (computed on the host) and per-axis scalars
-  read them.
+  read them;
+* ``ao_sh``: an optional baked SH-L1 occlusion field (X, Y, Z, 4) on the
+  device (`render/ao_sweep.attach_baked_ao`), stored as float32, bfloat16
+  or uint8 (physical = stored * ``ao_scale`` + ``ao_offset``; scale and
+  offset are floats or per-channel 4-tuples), at 1/``ao_downsample`` of
+  the volume's resolution per axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +35,19 @@ class BrickGrid:
     bbox_max: torch.Tensor
     value_scale: float = 1.0
     value_offset: float = 0.0
+    ao_sh: Optional[torch.Tensor] = None
+    ao_scale: Union[float, Tuple[float, ...]] = 1.0
+    ao_offset: Union[float, Tuple[float, ...]] = 0.0
+    ao_downsample: int = 1
+
+    def dequant(self, stored: torch.Tensor) -> torch.Tensor:
+        """Stored-type values -> physical float32 densities."""
+        x = stored.to(torch.float32)
+        if self.value_scale != 1.0:
+            x = x * self.value_scale
+        if self.value_offset != 0.0:
+            x = x + self.value_offset
+        return x
 
     @property
     def resolution(self) -> Tuple[int, int, int]:

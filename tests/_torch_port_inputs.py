@@ -37,3 +37,25 @@ def make_inputs(store: str, seed: int = 0):
 
 CASES = [("float32", "float32"), ("bfloat16", "bfloat16"),
          ("uint8", "float32"), ("uint8", "bfloat16")]
+
+
+def make_ao_field(quantize: bool = False, seed: int = 1):
+    """A smooth (Z, 4, X, Y) SH-like field for the march inputs above:
+    float32, or uint8 with per-channel scale and offset (4-tuples) when
+    ``quantize``; returns (field, physical float32 field, scale, offset)."""
+    rng = np.random.RandomState(seed)
+    z, x, y = np.meshgrid(np.arange(Z), np.arange(X), np.arange(Y),
+                          indexing="ij")
+    chans = [0.3 + 0.02 * x + 0.01 * z, 0.1 * np.sin(0.5 * y),
+             0.05 * np.cos(0.3 * x + 0.2 * z), -0.04 + 0.01 * y]
+    field = np.stack(chans, 1) + 0.01 * rng.rand(Z, 4, X, Y)
+    field = field.astype(np.float32)
+    if not quantize:
+        return field, field, 1.0, 0.0
+    lo = field.min(axis=(0, 2, 3))
+    scale = np.maximum((field.max(axis=(0, 2, 3)) - lo) / 255.0, 1e-8)
+    q = np.clip(np.round((field - lo[:, None, None])
+                         / scale[:, None, None]), 0, 255).astype(np.uint8)
+    phys = (q.astype(np.float32) * scale.astype(np.float32)[:, None, None]
+            + lo.astype(np.float32)[:, None, None])
+    return q, phys, tuple(float(s) for s in scale), tuple(float(v) for v in lo)

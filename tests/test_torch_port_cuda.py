@@ -1,7 +1,7 @@
-"""The CUDA march kernel vs its plain version, on the card.
+"""The CUDA kernels vs their plain versions, on the card.
 
 Marked ``cuda``: without a card these tests skip (decided inside each
-test).  On a machine with one: ``python -m pytest -m cuda
+test).  On a machine with one: ``python -m pytest --noconftest -m cuda
 tests/test_torch_port_cuda.py``.
 """
 
@@ -9,17 +9,23 @@ import numpy as np
 import pytest
 import torch
 
+from isosurfacesuperresolution_tpu_torch.ops import phase_conv as pc
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
 
-from _torch_port_inputs import CASES, SN, TN, make_inputs
+from _torch_port_inputs import CASES, SN, TN, make_ao_field, make_inputs
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("store,mm", CASES)
 def test_march_kernel_matches_plain(store, mm):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _need_card()
     vol, meta, sg, tg, scale, offset = make_inputs(store)
     args = [torch.from_numpy(a).cuda() for a in (vol, meta, sg, tg)]
     before = sweep_march.march.launches
@@ -35,3 +41,60 @@ def test_march_kernel_matches_plain(store, mm):
     for a, b in zip(got[1:], want[1:]):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("store,mm", CASES)
+def test_march_ao_kernel_matches_plain(store, mm, quantize):
+    _need_card()
+    vol, meta, sg, tg, scale, offset = make_inputs(store)
+    _, ao, _, _ = make_ao_field(quantize)
+    args = [torch.from_numpy(a).cuda() for a in (vol, meta, sg, tg)]
+    ao_t = torch.from_numpy(ao).cuda()
+    before = (sweep_march.march.launches, sweep_march.march.ao_launches)
+    got = sweep_march.march(*args, SN, TN, dtype=getattr(torch, mm),
+                            scale=scale, offset=offset, ao_zcxy=ao_t)
+    torch.cuda.synchronize()
+    assert (sweep_march.march.launches,
+            sweep_march.march.ao_launches) == (before[0], before[1] + 1)
+    want = sweep_march.march_plain(*[a.cpu() for a in args], SN, TN,
+                                   dtype=getattr(torch, mm), scale=scale,
+                                   offset=offset, ao_zcxy=ao_t.cpu())
+    assert len(got) == len(want) == 6 and got[5].shape == (4, SN, TN)
+    hit = want[0].numpy() >= 0
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    assert (got[5].cpu().numpy()[:, ~hit] == 0).all()
+    # the SH capture rounds like the density: two-tap float32 sums
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(11, 21), (37, 45)])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_phase_conv_kernel_matches_plain(relu, out, shape):
+    _need_card()
+    rng = np.random.RandomState(5)
+    h, w = shape           # partial tiles on both axes
+    x = torch.from_numpy((rng.rand(1, h, w, 256) - 0.5).astype(np.float32))
+    k3 = torch.from_numpy(((rng.rand(3, 3, 64, 64) - 0.5) * 0.2
+                           ).astype(np.float32))
+    bias = torch.from_numpy((rng.rand(64) - 0.5).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    before = pc.phase_conv.launches
+    got = pc.phase_conv3x3_amajor_blocked(
+        xb.cuda(), k3.cuda(), bias.cuda(), relu=relu,
+        out_dtype=getattr(torch, out))
+    torch.cuda.synchronize()
+    assert pc.phase_conv.launches == before + 1
+    want = pc.phase_conv_plain(xb, k3, bias, relu=relu,
+                               out_dtype=getattr(torch, out))
+    got, want = got.cpu().to(torch.float32), want.to(torch.float32)
+    # exact bf16 products, float32 sums in another order (2e-5 on O(1)
+    # sums); a bf16 output may round the other way, one step (2^-7 rel.)
+    tol = 2e-5 + (2.0 ** -7 * want.abs() if out == "bfloat16" else 0.0)
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())

@@ -1,7 +1,7 @@
-"""The whole slice: three chained fused frames of the port (on the CPU)
-vs the JAX package's `make_fused_frame(..., planar="off")` with the XLA
-sweep, with one numpy-seeded 2-block, 16-feature EnhanceNet on both
-sides."""
+"""The non-planar fused frame: three chained frames of the port (on the
+CPU) vs the JAX package's `make_fused_frame(..., planar="off")` with the
+XLA sweep, with one numpy-seeded 2-block, 16-feature EnhanceNet on both
+sides.  (The planar frame is held in `test_torch_port_planar.py`.)"""
 
 import math
 
@@ -68,7 +68,7 @@ def test_chained_fused_frames_match_jax():
                                          jrcfg, donate=False, planar="off")
     jstate = j_pipeline.initial_state(jcfg, jrcfg, planar="off")
     frame = FusedFrame(net, cfg, rcfg, planar="off", device="cpu")
-    state = initial_state(cfg, rcfg, device="cpu")
+    state = initial_state(cfg, rcfg, planar="off", device="cpu")
     jgrid = j_analytic.blobs_volume(32, num_blobs=5)
     grid = analytic.blobs_volume(32, num_blobs=5, device="cpu")
 
@@ -104,7 +104,8 @@ def test_fused_frame_skips_adaptive_oversample():
     cfg = Config(model=ModelConfig(**MODEL))
     frame = FusedFrame(None, cfg, rcfg, upscale_mode="bilinear",
                        device="cpu")
-    _, fr, _ = frame(grid, cam, cam, initial_state(cfg, rcfg, device="cpu"))
+    _, fr, _ = frame(grid, cam, cam, initial_state(
+        cfg, rcfg, upscale_mode="bilinear", device="cpu"))
     torch.testing.assert_close(fr, render_gbuffer_sweep(grid, cam, cam, rcfg),
                                rtol=0, atol=0)
     adaptive = render_frame_gbuffer(grid, cam, cam, rcfg)
@@ -112,7 +113,7 @@ def test_fused_frame_skips_adaptive_oversample():
 
 
 def test_pipeline_tracks_previous_camera():
-    cfg = Config(model=ModelConfig(**MODEL))
+    cfg = Config(model=ModelConfig(**MODEL))     # planar "auto": on
     net = EnhanceNet(cfg.model).eval()
     pipe = InferencePipeline(net, cfg, RenderConfig(**RENDER), device="cpu")
     grid = analytic.sphere_volume(32, device="cpu")
@@ -127,7 +128,10 @@ def test_pipeline_tracks_previous_camera():
 
 @pytest.mark.parametrize("planar", ["on", "sideways"])
 def test_fused_frame_refuses_planar(planar):
-    cfg = Config(model=ModelConfig(**MODEL))
-    with pytest.raises((NotImplementedError, ValueError)):
+    """The JAX rule: planar="on" raises ValueError for a configuration that
+    `supports_planar` rejects (here a direct reconstruction); an unknown
+    setting raises too."""
+    cfg = Config(model=ModelConfig(recon_type="direct", **MODEL))
+    with pytest.raises(ValueError):
         FusedFrame(EnhanceNet(cfg.model), cfg, RenderConfig(**RENDER),
                    planar=planar, device="cpu")

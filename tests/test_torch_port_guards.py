@@ -16,6 +16,7 @@ from isosurfacesuperresolution_tpu_torch.config import (
 from isosurfacesuperresolution_tpu_torch.infer import pipeline
 from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import LoadedModel
 from isosurfacesuperresolution_tpu_torch.models.generators import EnhanceNet
+from isosurfacesuperresolution_tpu_torch.ops import phase_conv
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
 from isosurfacesuperresolution_tpu_torch.volume import analytic
 
@@ -32,8 +33,12 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "isosurfacesuperresolution_tpu"
              or m.startswith("isosurfacesuperresolution_tpu."))
-print(len(names), bad)
+print(" ".join(names))
+print(bad)
 """
+
+NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
+               "render.ao_sweep")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -41,8 +46,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20          # every module of the port was imported
+    names, bad = out.stdout.strip().splitlines()
+    names = names.split()
+    assert len(names) >= 24          # every module of the port was imported
+    for mod in NEW_MODULES:
+        assert f"isosurfacesuperresolution_tpu_torch.{mod}" in names
     assert bad == "[]"
 
 
@@ -99,6 +107,60 @@ def test_march_raises_for_cuda_request_without_library(monkeypatch,
     assert sweep_march.march.launches == before
 
 
+def _no_library(monkeypatch, tmp_path):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(kernels, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    monkeypatch.setattr(sweep_march, "_FN", None)
+    monkeypatch.setattr(sweep_march, "march_plain", plain)
+    monkeypatch.setattr(phase_conv, "_FN", None)
+    monkeypatch.setattr(phase_conv, "phase_conv_plain", plain)
+
+
+def test_march_ao_raises_for_cuda_request_without_library(monkeypatch,
+                                                           tmp_path):
+    _no_library(monkeypatch, tmp_path)
+    before = (sweep_march.march.launches, sweep_march.march.ao_launches)
+    with FakeTensorMode():
+        vol = torch.empty((4, 6, 5), device="cuda")
+        ao = torch.empty((4, 4, 6, 5), device="cuda")
+        meta = torch.empty((8, 8), device="cuda")
+        sg = torch.empty(7, device="cuda")
+        tg = torch.empty(3, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            sweep_march.march(vol, meta, sg, tg, 7, 3, ao_zcxy=ao)
+    assert (sweep_march.march.launches,
+            sweep_march.march.ao_launches) == before
+
+
+@pytest.mark.parametrize("name", ["phase_conv3x3_amajor",
+                                  "phase_conv3x3_amajor_blocked"])
+def test_phase_conv_raises_for_cuda_request_without_library(
+        monkeypatch, tmp_path, name):
+    _no_library(monkeypatch, tmp_path)
+    before = phase_conv.phase_conv.launches
+    with FakeTensorMode():
+        x = torch.empty((1, 5, 7, 256), dtype=torch.bfloat16, device="cuda")
+        k3 = torch.empty((3, 3, 64, 64), device="cuda")
+        bias = torch.empty(64, device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            getattr(phase_conv, name)(x, k3, bias, relu=True)
+    assert phase_conv.phase_conv.launches == before
+
+
+def test_phase_conv_refuses_other_devices():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        phase_conv.phase_conv(torch.empty((1, 2, 3, 256), device="meta"),
+                              torch.empty((3, 3, 64, 64), device="meta"),
+                              torch.empty(64, device="meta"))
+
+
 def test_find_nvcc_raises_without_toolkit(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as cpp_extension
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -122,3 +184,16 @@ def test_library_name_follows_source_and_flags(monkeypatch):
     monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ["-g"])
     assert kernels.library_path("sweep_march") != a
     assert a.parent == kernels.BUILD_DIR and a.suffix == ".so"
+
+
+def test_nvcc_flags_are_per_source(monkeypatch):
+    """The march keeps every product and sum rounded on its own; the phase
+    conv (exact bf16 products) is built without --fmad=false, and each
+    library name hashes its own flags."""
+    assert "--fmad=false" in kernels.flags("sweep_march")
+    assert "--fmad=false" not in kernels.flags("phase_conv")
+    assert set(kernels.SOURCES) == {"sweep_march", "phase_conv"}
+    b = kernels.library_path("phase_conv")
+    monkeypatch.setitem(kernels.SOURCES, "phase_conv",
+                        ("phase_conv.cu", ["--fmad=false"]))
+    assert kernels.library_path("phase_conv") != b
