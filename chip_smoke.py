@@ -25,11 +25,27 @@ seconds; any failure ends the run with a non-zero exit code:
    "auto" -> the planar engine, float32, dense tail), 20 orbit frames;
 7. the frames `bench.py --phase` times: run00017's weights with
    compute_dtype bfloat16 and the phase tail, 20 frames without AO, then
-   20 on the baked-AO grid (ao_samples 64, ao_mode "volume").
+   20 on the baked-AO grid (ao_samples 64, ao_mode "volume");
+8. the large dense volume of `scripts/bench_volumes.py`: `blobs_volume(512)`
+   stored uint8, made once on the host (its seconds logged), its baked
+   SH field at full resolution in bf16 and at half resolution kept coarse
+   in uint8;
+9. the tiled march (B2) and the tiled AO capture (B4, both fields) vs
+   their plain versions at the 512^3 frame's shapes (iso 0.36, 480x270,
+   oversample 1.25, bf16 sweep: K = 1024, Sn x Tn = 600 x 338), with
+   stated bounds, and their times;
+10. the 512^3 G-buffer frames `bench_volumes.py` times
+   (`render_gbuffer_sweep`, 20 orbit frames each): no AO, the full-res
+   bf16 field, the coarse uint8 field;
+11. the main path at 512^3: the 512-tuned 10x64 EnhanceNet
+   (artifacts/run00015, iso 0.36, no AO as in its config) through
+   `InferencePipeline` (planar "auto"), 480x270 -> 1920x1080, 20 frames;
+12. card vs CPU on three chained small tiled frames (48^3 blobs,
+   sweep_tile 16, a coarse uint8 AO field).
 
-In phases 4, 6 and 7 the launch counts are zeroed just before each run
-and read just after it, and frames 3 onwards must make no host sync
-(`torch.cuda.set_sync_debug_mode`).  Then one JSON line of kernel numbers,
+In phases 4, 6, 7, 10 and 11 the launch counts are zeroed just before
+each run and read just after it, and frames 3 onwards must make no host
+sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line of kernel numbers,
 the card line, and last the device line.  Float32 matmuls and
 convolutions run without TF32 throughout
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
@@ -61,6 +77,10 @@ MARCH_SOURCE = f"{PKG}/csrc/sweep_march.cu"
 MARCH_REPLACES = "isosurfacesuperresolution_tpu/render/sweep_pallas.py:46"
 PHASE_SOURCE = f"{PKG}/csrc/phase_conv.cu"
 PHASE_REPLACES = "isosurfacesuperresolution_tpu/ops/phase_conv.py:245"
+TILED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
+                  "sweep_pallas_tiled.py:54")
+AO_TILED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
+                     "sweep_pallas_tiled.py:346")
 # bounds of the march comparison: both round the same operands at the same
 # points; float32 sums may differ in the last place, which can move a
 # crossing where F is within rounding of the isovalue
@@ -68,6 +88,9 @@ MAX_HIT_MISMATCH = 1e-3      # share of pixels whose m_hit differs
 MAX_FRAC_DIFF = 1e-3         # inverse lerp divides by F - Fm1
 MAX_GRAD_DIFF = 1e-4
 MAX_SH_DIFF = 1e-4           # SH capture: two-tap sums like F
+# the tiled capture sums per tile pair, as its plain version does; a bf16
+# rounding of a pair term may still go the other way (2^-8 of the term)
+MAX_SH_REL = 2.0 ** -8
 # phase conv vs plain: exact bf16 products, float32 sums in another order
 # (O(1e-5) on these sums); a bf16 output may round the other way, one
 # bf16 step, at most 2^-7 of the value
@@ -163,6 +186,94 @@ def phase_bound_ms(H: int, W: int, out_elem: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tiled_bound_ms(args: dict, outs, tables) -> tuple:
+    """Least time for the tiled march on THIS data, counted as
+    `march_bound_ms` counts the flat march.  ``tables`` is
+    `sweep_tiled.march_tables` of ``args``.  Bytes: the volume planes that
+    working slices read, only inside their occupied tiles (each (plane,
+    tile) once), the tile table and grids, the five outputs.  Operations:
+    10 float32 flops per tap in an occupied tile on every working slice
+    up to the pixel's hit (the flat march's 40 per four-tap sample: z-lerp,
+    dequant, weight, product, and the sums), and at each hit four
+    neighbour samples (4 x 40)."""
+    import torch
+    vol, meta, Sn, Tn = args["vol_zxy"], args["meta"], args["Sn"], args["Tn"]
+    TX, TY, occ, counts = tables
+    Z, X, Y = vol.shape
+    K, NTX, NTY = occ.shape
+    occ_f = occ.reshape(K, -1).to(torch.float32)
+    zf = meta[:, 2].long()
+    planes = torch.zeros((Z, NTX * NTY), device=vol.device)
+    planes.index_add_(0, zf, occ_f).index_add_(0, zf + 1, occ_f)
+    nbytes = (float((planes > 0).sum()) * TX * TY * vol.element_size()
+              + meta.numel() * 4 + (Sn + Tn) * 4
+              + args["table"].numel() * 4 + 5 * Sn * Tn * 4)
+    m_hit = outs[0]
+    live_until = torch.where(m_hit >= 0, m_hit, float(K))
+    taps = torch.zeros((), dtype=torch.float64, device=vol.device)
+
+    def tap_tiles(pos, n, t, nt):
+        """(len(pos), nt) count of a pixel's valid taps in each tile"""
+        j0 = torch.floor(pos - 0.5).long()
+        out = torch.zeros((pos.shape[0], nt), device=pos.device)
+        for a in range(2):
+            j = j0 + a
+            ok = (j >= 0) & (j < n)
+            out += torch.nn.functional.one_hot(
+                torch.clamp(j, 0, n - 1) // t, nt) * ok[:, None]
+        return out
+
+    rows = meta.cpu()
+    for k in torch.nonzero(counts.cpu() > 0).flatten().tolist():
+        lam, eye_s, eye_t = (float(v) for v in rows[k, [1, 6, 7]])
+        ax = tap_tiles(eye_s + lam * (args["s_grid"] - eye_s), X, TX, NTX)
+        ay = tap_tiles(eye_t + lam * (args["t_grid"] - eye_t), Y, TY, NTY)
+        live = (live_until >= k).to(torch.float64)
+        per_px = ax @ occ[k].to(torch.float32) @ ay.t()
+        taps += (per_px * live).sum()
+    hits = float((m_hit >= 0).sum())
+    ops = 10.0 * float(taps) + 4 * 40.0 * hits
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ao_tiled_bound_ms(field, meta, s_grid, t_grid, m_hit, fd, tables,
+                      table) -> tuple:
+    """Least time for the tiled AO capture on THIS data.  ``tables`` is
+    `sweep_tiled.ao_tables` of these inputs, ``table`` the kernel's tile
+    table.  Bytes: the field values sampled at the hits (2 planes x 4
+    channels at each of a hit's taps in a kept tile), m_hit read, sh
+    written, the table.  Operations: 4 channels x 10 flops (z-lerp,
+    dequant, weight, product, sum, as the marches count) per such tap."""
+    import torch
+    Sn, Tn = m_hit.shape
+    TX, TY, occ, _, meta2 = tables
+    K = meta.shape[0]
+    _, _, X2, Y2 = field.shape
+    NTY = Y2 // TY
+    hit = m_hit >= 0
+    k = torch.clamp(m_hit.long(), 0, K - 1)
+    lam, eye_s, eye_t = meta2[k, 1], meta2[k, 6], meta2[k, 7]
+    sp = (eye_s + lam * (s_grid[:, None] - eye_s)) / fd
+    tp = (eye_t + lam * (t_grid[None, :] - eye_t)) / fd
+    jx0, jy0 = torch.floor(sp - 0.5).long(), torch.floor(tp - 0.5).long()
+    occ_f = occ.reshape(K, -1)
+    n_taps = 0.0
+    for a in range(2):
+        for b in range(2):
+            jx, jy = jx0 + a, jy0 + b
+            ok = (jx >= 0) & (jx < X2) & (jy >= 0) & (jy < Y2) & hit
+            pid = (torch.clamp(jx, 0, X2 - 1) // TX * NTY
+                   + torch.clamp(jy, 0, Y2 - 1) // TY)
+            n_taps += float((ok & occ_f[k, pid]).sum())
+    nbytes = (n_taps * 2 * 4 * field.element_size() + Sn * Tn * 4
+              + 4 * Sn * Tn * 4 + table.numel() * 4 + meta.numel() * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_taps * 4 * 10 / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare_march(got, want) -> dict:
     m_got, m_want = got[0], want[0]
     mismatch = float((m_got != m_want).float().mean())
@@ -198,6 +309,30 @@ def check_march(tag: str, got, want) -> float:
         if not bool((got[5][:, ~hit] == 0).all()):
             raise RuntimeError(f"[{tag}] SH written where no crossing")
     return max(v for k, v in cmp.items() if k != "hit_mismatch")
+
+
+def check_card_vs_cpu(tag: str, outs: dict, with_ao: bool) -> None:
+    """Compare the last of three chained small frames rendered on the card
+    and on the CPU, ``outs[dev] = (rgb, G-buffer)``; raise out of bounds
+    (and, ``with_ao``, if the AO channel is 1 on every hit)."""
+    d_rgb = (outs["cuda"][0] - outs["cpu"][0]).abs()
+    fr_c, fr_h = outs["cuda"][1], outs["cpu"][1]
+    mask_mismatch = float((fr_c[..., 3] != fr_h[..., 3]).float().mean())
+    far = float((d_rgb > 0.05).float().mean())
+    both = (fr_c[..., 3] > 0.5) & (fr_h[..., 3] > 0.5)
+    d_ao = float((fr_c[..., 10] - fr_h[..., 10]).abs()[both].max())
+    log(f"[{tag}] 3 chained 64x48 -> 256x192 frames: G-buffer mask "
+        f"mismatch {mask_mismatch:.4f}, AO |diff| on hits {d_ao:.2e}, rgb "
+        f"median |diff| {float(d_rgb.median()):.2e}, share > 0.05: "
+        f"{far:.4f}")
+    if (mask_mismatch > 0.01 or far > 0.01
+            or float(d_rgb.median()) > 1e-3 or d_ao > MAX_SH_DIFF):
+        raise RuntimeError(
+            f"card and CPU frames disagree ({tag}; bounds: mask mismatch "
+            f"<= 0.01, share of rgb |diff| > 0.05 <= 0.01, median |diff| "
+            f"<= 1e-3, AO |diff| on hits <= {MAX_SH_DIFF})")
+    if with_ao and not bool((fr_c[..., 10][both] < 1).any()):
+        raise RuntimeError(f"[{tag}] the AO channel is 1 on every hit")
 
 
 def drive(frame_fn, n_frames: int, tag: str, counters: dict):
@@ -251,6 +386,11 @@ def check_rgb(rgb, mask, shape) -> None:
 
 
 def expect(launches: dict, want: dict, tag: str) -> None:
+    """``want`` names the kernels launched; every other count must be 0."""
+    unknown = set(want) - set(launches)
+    if unknown:
+        raise KeyError(f"[{tag}] no launch counter for {sorted(unknown)}")
+    want = {k: want.get(k, 0) for k in launches}
     if launches != want:
         raise RuntimeError(f"[{tag}] kernel launches {launches}, expected "
                            f"{want}")
@@ -293,18 +433,24 @@ def main() -> int:
         FusedFrame, InferencePipeline, initial_state)
     from isosurfacesuperresolution_tpu_torch.ops import phase_conv as pc
     from isosurfacesuperresolution_tpu_torch.render import sweep_march
+    from isosurfacesuperresolution_tpu_torch.render import sweep_tiled
     from isosurfacesuperresolution_tpu_torch.render.ao_sweep import (
         attach_baked_ao)
     from isosurfacesuperresolution_tpu_torch.render.params import (
         RenderParams)
     from isosurfacesuperresolution_tpu_torch.render.sweep import (
-        march_inputs, plan_sweep)
+        ao_tile_table, field_zcxy, march_inputs, plan_sweep,
+        render_gbuffer_sweep, tiled_inputs, use_tiled)
     from isosurfacesuperresolution_tpu_torch.volume import analytic
 
     march = sweep_march.march
     counters = {"sweep_march": (march, "launches"),
                 "sweep_march_ao": (march, "ao_launches"),
-                "phase_conv": (pc.phase_conv, "launches")}
+                "phase_conv": (pc.phase_conv, "launches"),
+                "sweep_march_tiled": (sweep_tiled.march_tiled_kernel,
+                                      "launches"),
+                "ao_capture_tiled": (sweep_tiled.ao_capture_tiled_kernel,
+                                     "launches")}
     frame_cfg = RenderConfig(width=480, height=270, isovalue=0.5,
                              ao_samples=0, renderer="sweep_pallas",
                              sweep_oversample=1.25, sweep_dtype="bfloat16")
@@ -474,29 +620,7 @@ def main() -> int:
                                          cam_at(0.03 * (i - 1)), st)
                 outs[dev] = (rgb_s.cpu(), fr_s.cpu())
             lm.model.to("cuda")
-            d_rgb = (outs["cuda"][0] - outs["cpu"][0]).abs()
-            fr_c, fr_h = outs["cuda"][1], outs["cpu"][1]
-            mask_mismatch = float((fr_c[..., 3] != fr_h[..., 3])
-                                  .float().mean())
-            far = float((d_rgb > 0.05).float().mean())
-            both = (fr_c[..., 3] > 0.5) & (fr_h[..., 3] > 0.5)
-            d_ao = float((fr_c[..., 10] - fr_h[..., 10]).abs()[both].max())
-            log(f"[{tag}] 3 chained 64x48 -> 256x192 frames: G-buffer mask "
-                f"mismatch {mask_mismatch:.4f}, AO |diff| on hits {d_ao:.2e}"
-                f", rgb "
-                f"median |diff| {float(d_rgb.median()):.2e}, share > 0.05: "
-                f"{far:.4f}")
-            if (mask_mismatch > 0.01 or far > 0.01
-                    or float(d_rgb.median()) > 1e-3 or d_ao > MAX_SH_DIFF):
-                raise RuntimeError(
-                    f"card and CPU frames disagree ({tag}; bounds: mask "
-                    f"mismatch <= 0.01, share of rgb |diff| > 0.05 <= 0.01, "
-                    f"median |diff| <= 1e-3, AO |diff| on hits <= "
-                    f"{MAX_SH_DIFF})")
-            if ao_sh is not None and not bool((fr_c[..., 10][both] < 1)
-                                              .any()):
-                raise RuntimeError(f"[{tag}] the AO channel is 1 on every "
-                                   f"hit")
+            check_card_vs_cpu(tag, outs, ao_sh is not None)
         del ao64
 
     with phase("6 main path: run00017 through InferencePipeline, 20 frames"):
@@ -548,7 +672,206 @@ def main() -> int:
                 raise RuntimeError("the AO channel is 1 on every hit")
             del ff, st
 
-    log(f"launches over the main-path runs of phases 4, 6 and 7: "
+    with phase("8 the 512^3 volume of bench_volumes.py and its AO fields"):
+        t = time.time()
+        grid512 = analytic.blobs_volume(512, store_dtype="uint8",
+                                        device="cuda")
+        torch.cuda.synchronize()
+        log(f"blobs_volume(512) stored uint8 (numpy on the host, the brick "
+            f"pyramid included): {time.time() - t:.1f} s; occupied bricks "
+            f"at iso 0.36: "
+            f"{float((grid512.brick_max >= 0.36).float().mean()):.3f}")
+        t = time.time()
+        grid512_ao = attach_baked_ao(grid512, 0.36, 0.2,
+                                     out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"full-resolution bf16 field {tuple(grid512_ao.ao_sh.shape)}: "
+            f"{time.time() - t:.1f} s")
+        t = time.time()
+        grid512_c = attach_baked_ao(grid512, 0.36, 0.2, downsample=2,
+                                    keep_coarse=True, out_dtype="uint8")
+        torch.cuda.synchronize()
+        log(f"half-resolution uint8 field kept coarse "
+            f"{tuple(grid512_c.ao_sh.shape)}: {time.time() - t:.1f} s")
+
+    cfg512 = RenderConfig(width=480, height=270, isovalue=0.36,
+                          ao_samples=0, renderer="sweep_pallas",
+                          sweep_oversample=1.25, sweep_dtype="bfloat16")
+    ao512 = cfg512.replace(ao_samples=64, ao_mode="volume")
+    with phase("9 tiled kernels vs plain at 512^3"):
+        rp512 = RenderParams.from_config(cfg512)
+        plan = plan_sweep(grid512, cam_at(0.0), cfg512, rp512)
+        if not use_tiled(cfg512, plan, grid512):
+            raise RuntimeError("the 512^3 view does not take the tiled path")
+        args = tiled_inputs(grid512, plan, cfg512, rp512)
+        args["vol_zxy"] = sweep_march.kernel_volume(args["vol_zxy"],
+                                                    args["dtype"])
+        tables = sweep_tiled.march_tables(
+            args["vol_zxy"].shape, args["meta"], args["brick_max_p"],
+            args["brick_size"], args["iso"], args["tile"])
+        TX, TY, occ, counts = tables
+        log(f"[B2] K={args['meta'].shape[0]} Sn={args['Sn']} "
+            f"Tn={args['Tn']} tile {args['tile']} ({tuple(occ.shape[1:])} "
+            f"tiles), working slices {int((counts > 0).sum())}, occupied "
+            f"tiles per working slice "
+            f"{float(counts.sum()) / max(int((counts > 0).sum()), 1):.2f}")
+        plain = {k: v for k, v in args.items() if k != "table"}
+        got = sweep_tiled.march_tiled(**args)
+        torch.cuda.synchronize()
+        want = sweep_tiled.march_tiled_plain(**plain)
+        torch.cuda.synchronize()
+        err = check_march("B2 bf16 uint8-volume", got, want)
+        kargs = (args["vol_zxy"], args["meta"], args["s_grid"],
+                 args["t_grid"], args["Sn"], args["Tn"], args["table"], TX,
+                 TY, args["iso"], args["dtype"], args["scale"],
+                 args["offset"])
+        ms = time_cuda(lambda: sweep_tiled.march_tiled_kernel(*kargs), 7)
+        wrapper_ms = time_cuda(lambda: sweep_tiled.march_tiled(**args), 7)
+        plain_ms = time_cuda(lambda: sweep_tiled.march_tiled_plain(**plain),
+                             3)
+        bound, bound_by = tiled_bound_ms(args, got, tables)
+        log(f"[B2] kernel {ms:.3f} ms (median of 7; the wrapper, its tile "
+            f"table kept with the grid, {wrapper_ms:.3f} ms), plain "
+            f"{plain_ms:.1f} ms (median of 3), bound {bound:.4f} ms by "
+            f"{bound_by}")
+        rows["tiled"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": bound_by,
+                         "library_ms": None}
+        m_hit = got[0]
+        for tag, g in (("full-res bf16 field", grid512_ao),
+                       ("coarse uint8 field", grid512_c)):
+            ao_args = dict(ao_zcxy=field_zcxy(g.ao_sh, plan.perm),
+                           meta=args["meta"], s_grid=args["s_grid"],
+                           t_grid=args["t_grid"], Sn=args["Sn"],
+                           Tn=args["Tn"], m_hit=m_hit,
+                           brick_max_p=args["brick_max_p"],
+                           brick_size=args["brick_size"], iso=args["iso"],
+                           dtype=args["dtype"], ao_scale=g.ao_scale,
+                           ao_offset=g.ao_offset,
+                           field_downsample=g.ao_downsample)
+            table = ao_tile_table(g, plan.perm)
+            sh = sweep_tiled.ao_capture_tiled(**ao_args, table=table)
+            torch.cuda.synchronize()
+            sh_want = sweep_tiled.ao_capture_tiled_plain(**ao_args)
+            torch.cuda.synchronize()
+            hit = m_hit >= 0
+            d = (sh - sh_want).abs()
+            excess = float((d - MAX_SH_REL * sh_want.abs()).max())
+            ok = (excess <= 1e-6 and bool((sh[:, ~hit] == 0).all())
+                  and bool((sh_want[:, hit] != 0).any()))
+            log(f"[B4 {tag}] max |diff| {float(d.max()):.3g}, bound |diff| "
+                f"<= 1e-6 + {MAX_SH_REL:.3g} |sh| (excess {excess:.3g}), 0 "
+                f"where no hit: {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"ao_capture_tiled disagrees with its "
+                                   f"plain version ({tag})")
+            field = ao_args["ao_zcxy"]
+            tables = sweep_tiled.ao_tables(
+                field.shape, args["meta"], m_hit, args["brick_max_p"],
+                args["brick_size"], args["iso"], 128, g.ao_downsample)
+            TX, TY = tables[:2]
+            kargs = (field, args["meta"], args["s_grid"], args["t_grid"],
+                     m_hit, table, TX, TY, args["iso"], args["dtype"],
+                     g.ao_scale, g.ao_offset, g.ao_downsample)
+            ms = time_cuda(lambda: sweep_tiled.ao_capture_tiled_kernel(
+                *kargs), 7)
+            wrapper_ms = time_cuda(lambda: sweep_tiled.ao_capture_tiled(
+                **ao_args, table=table), 7)
+            plain_ms = time_cuda(
+                lambda: sweep_tiled.ao_capture_tiled_plain(**ao_args), 3)
+            bound, bound_by = ao_tiled_bound_ms(
+                field, args["meta"], args["s_grid"], args["t_grid"], m_hit,
+                g.ao_downsample, tables, table)
+            log(f"[B4 {tag}] kernel {ms:.3f} ms (median of 7; the wrapper, "
+                f"its tile table kept with the grid, {wrapper_ms:.3f} ms), "
+                f"plain {plain_ms:.1f} ms (median of 3), bound {bound:.4f} "
+                f"ms by {bound_by}")
+            rows[f"ao_tiled {tag}"] = {
+                "max_abs_err": float(d.max()), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None}
+        del args, got, want, sh, sh_want, d
+
+    with phase("10 512^3 G-buffer frames (bench_volumes.py), 20 each"):
+        for tag, g, rcfg, ao in (
+                ("512^3 G-buffer", grid512, cfg512, False),
+                ("512^3 G-buffer + full-res bf16 AO", grid512_ao, ao512,
+                 True),
+                ("512^3 G-buffer + coarse uint8 AO", grid512_c, ao512,
+                 True)):
+            def run(i, g=g, rcfg=rcfg):
+                return render_gbuffer_sweep(g, cam_at(0.05 * i),
+                                            cam_at(0.05 * i - 0.03), rcfg)
+
+            fr, launches = drive(run, 20, tag, counters)
+            want = {"sweep_march_tiled": 20}
+            if ao:
+                want["ao_capture_tiled"] = 20
+            expect(launches, want, tag)
+            add(launches)
+            hit = fr[..., 3] > 0.5
+            if not bool(torch.isfinite(fr).all()) or not bool(hit.any()):
+                raise RuntimeError(f"[{tag}] non-finite or empty G-buffer")
+            ao_hit = fr[..., 10][hit]
+            log(f"[{tag}] mask share {float(hit.float().mean()):.4f}, AO on "
+                f"hits: min {float(ao_hit.min()):.4f}, mean "
+                f"{float(ao_hit.mean()):.4f}")
+            if ao and not bool((ao_hit < 1.0).any()):
+                raise RuntimeError(f"[{tag}] the AO channel is 1 on every "
+                                   f"hit")
+        del fr
+
+    with phase("11 main path at 512^3: run00015 through InferencePipeline"):
+        lm15 = LoadedModel.from_run_dir(str(ROOT / "artifacts" / "run00015"),
+                                        device="cuda")
+        m15 = lm15.cfg.model
+        log(f"run00015: EnhanceNet {m15.num_residual_blocks} blocks x "
+            f"{m15.num_features} features, {m15.compute_dtype}")
+        pipe = InferencePipeline(lm15.model, lm15.cfg, cfg512,
+                                 device="cuda")
+        if not pipe.use_planar:
+            raise RuntimeError("planar 'auto' did not select the planar "
+                               "engine for run00015")
+        rgb, launches = drive(
+            lambda i: pipe.frame(grid512, cam_at(0.03 * i)), 20,
+            "512^3 planar f32 (run00015)", counters)
+        check_rgb(rgb, pipe.state.prev_high[..., 0:16] > 0.0,
+                  (1080, 1920, 3))
+        expect(launches, {"sweep_march_tiled": 20}, "512^3 planar f32")
+        add(launches)
+        del pipe, grid512, grid512_ao, grid512_c
+
+    with phase("12 small tiled frames: card vs CPU"):
+        tiny = RenderConfig(width=64, height=48, isovalue=0.36,
+                            renderer="sweep_pallas", sweep_oversample=1.25,
+                            sweep_dtype="bfloat16", sweep_tile=16,
+                            ao_samples=64, ao_mode="volume")
+        coarse48 = attach_baked_ao(
+            analytic.blobs_volume(48, device="cuda"), 0.36, 0.2,
+            downsample=2, keep_coarse=True, out_dtype="uint8")
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            g = dataclasses.replace(
+                analytic.blobs_volume(48, device=dev),
+                ao_sh=coarse48.ao_sh.to(dev), ao_scale=coarse48.ao_scale,
+                ao_offset=coarse48.ao_offset, ao_downsample=2)
+            ff = FusedFrame(lm15.model.to(dev), lm15.cfg, tiny, planar="off",
+                            device=dev)
+            st = initial_state(lm15.cfg, tiny, planar="off", device=dev)
+            before = sweep_tiled.ao_capture_tiled_kernel.launches
+            for i in range(3):
+                rgb_s, fr_s, st = ff(g, cam_at(0.05 * i),
+                                     cam_at(0.05 * i - 0.03), st)
+            if dev == "cuda" and (sweep_tiled.ao_capture_tiled_kernel.launches
+                                  != before + 3):
+                raise RuntimeError("the small tiled frames did not launch "
+                                   "the tiled AO capture")
+            outs[dev] = (rgb_s.cpu(), fr_s.cpu())
+        check_card_vs_cpu("tiled 48^3, sweep_tile 16, coarse uint8 AO", outs,
+                          True)
+        lm15.model.to("cuda")
+
+    log(f"launches over the main-path runs of phases 4, 6, 7, 10 and 11: "
         f"{path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
@@ -557,7 +880,11 @@ def main() -> int:
              "isosurfacesuperresolution_tpu/render/sweep_pallas.py:163",
              rows["bfloat16 AO"]),
             ("phase_conv", PHASE_SOURCE, PHASE_REPLACES,
-             rows["phase_conv bfloat16"])):
+             rows["phase_conv bfloat16"]),
+            ("sweep_march_tiled", MARCH_SOURCE, TILED_REPLACES,
+             rows["tiled"]),
+            ("ao_capture_tiled", MARCH_SOURCE, AO_TILED_REPLACES,
+             rows["ao_tiled full-res bf16 field"])):
         kernels_line.append({"name": name, "route": "cuda", "source": source,
                              "replaces": replaces,
                              "launches": path_launches[name], **row})

@@ -21,8 +21,9 @@ class RenderConfig:
 
     width: int = 320
     height: int = 240
-    # "sweep" and "sweep_pallas" both run the port's sweep march: the CUDA
-    # kernel on the card, its plain version on the CPU
+    # "sweep": the reference's slice scan in stock PyTorch ops (an oracle
+    # path); "sweep_pallas": the march kernels (CUDA on the card, their
+    # plain versions on the CPU)
     renderer: str = "sweep"
     sweep_oversample: float = 1.5      # intermediate grid resolution factor
     sweep_z_supersample: int = 2       # slice planes per voxel along the axis
@@ -30,6 +31,10 @@ class RenderConfig:
     # `render.api.render_frame_gbuffer`; the fused frame never applies it
     sweep_adaptive_oversample: bool = True
     sweep_max_oversample: float = 3.5
+    # occupancy-gated tiled march (render/sweep_tiled.py) under
+    # "sweep_pallas": 0 = tile 256 when the permuted slice plane reaches
+    # 512 on an axis, < 0 = never, > 0 = always, with this tile
+    sweep_tile: int = 0
     # storage/multiply type of the per-slice resample (accumulation f32)
     sweep_dtype: str = "float32"
     isovalue: float = 0.36

@@ -1,6 +1,7 @@
-// Sweep march for Hopper (sm_90a).
+// Sweep march for Hopper (sm_90a): the flat march (B1), the tiled march
+// (B2) and the tiled AO capture (B4).
 //
-// Replaces the TPU kernel `_march_kernel` behind `march_pallas` in
+// B1 replaces the TPU kernel `_march_kernel` behind `march_pallas` in
 // isosurfacesuperresolution_tpu/render/sweep_pallas.py, both forms
 // (has_ao=False and has_ao=True).  Same contract: a front-to-back march over the K slice planes of a
 // (Z, X, Y) slice-major volume; per slice a z-lerp of two (X, Y) planes, the
@@ -35,6 +36,44 @@
 // costs four more 2x2 samples per pixel, once, at its crossing.  Built with
 // --fmad=false so every product and sum rounds on its own.  Shared-memory
 // slice tiles and TMA are the next step.
+//
+// B2 replaces `_tiled_kernel` (dense form) behind `march_pallas_tiled` in
+// isosurfacesuperresolution_tpu/render/sweep_pallas_tiled.py.  The slice
+// plane is cut into an (NTX, NTY) grid of (TX, TY) tiles, and a tile p
+// (pair id xt * NTY + yt, P = NTX * NTY) is occupied on a slice with floor
+// zf when tab[zf][p] >= iso: tab is the wrapper's tile table, the brick
+// pyramid's largest max per tile over the brick layers of zf and zf + 1,
+// with the row's largest in column P; it does not depend on the camera.
+// Its function differs from B1's in two places: a slice works only when
+// its do-flag is set and a tile is occupied (tab[zf][P] >= iso), otherwise
+// Fm1 := 0 and no crossing test runs; and on a working slice a tap (x, y)
+// contributes only when its tile (x / TX, y / TY) is occupied, so
+//   F = sum_y rnd(sum_x [occ(x, y)] rnd(wx) rnd(sl)) rnd(wy),
+// the TPU kernel's row accumulator over occupied tiles.  On the TPU the
+// tiling gates DMA and matmul work; here a thread reads only its 2 x 2
+// taps anyway, so the same B1 design carries it: a culled tap is never
+// loaded, and an empty slice costs one read of the table.  The
+// periodic neighbours' Fm1 is recomputed under slice k-1's occupancy.
+//
+// B4 replaces `_ao_capture_kernel` (dense form) behind `ao_capture_tiled`.
+// A second pass after B2: a pixel whose march hit slice k = m_hit samples
+// the 4-channel SH field there (stored uint8, or in the resample type),
+// in pairs of field tiles (xt, yt) of its taps that the dilated occupancy
+// of slice k keeps (a do-slice, tab[zf][p] >= iso with tab the wrapper's
+// table dilated over 3 x 3 tiles, in fine voxels), in increasing pair id
+// xt * NTY + yt; per pair the x taps inside xt are summed, rounded, and
+// weighted by the y taps inside yt, and the pair terms add up in float32
+// in that order.  uint8 fields are lerped in float32 and dequantized per
+// channel (scale, offset) before the rounding to the resample type.  A
+// coarse field (1/fd per axis) is sampled at the hit position times
+// inv_f = 1/fd, between the coarse slabs
+// zf2 = clip(floor(zc / fd - 0.5), 0, Z2 - 2) and zf2 + 1 (the TPU
+// wrapper's rewrite of the meta z columns).  On the TPU the kernel loops
+// over slices and DMAs (2, 4, TX, TY) windows; here one thread per pixel
+// reads its own row k and at most 2 x 2 x 2 x 4 field values, with no
+// loop over slices.  The field is read through its strides (a permuted
+// view is not copied).
+// Bound: the field values sampled at the hits; the reads are scattered.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,12 +101,16 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // F at pixel (sg, tg) of the slice described by meta row m; plane z of
-// the field starts at vol + z * zstride.
-template <typename T, bool BF16>
+// the field starts at vol + z * zstride.  TILED: only taps whose tile's
+// entry in the slice's tile-table row tab reaches iso contribute.
+template <typename T, bool BF16, bool TILED = false>
 __device__ float sample_slice(const T* __restrict__ vol, size_t zstride,
                               int Z, int X, int Y,
                               const float* __restrict__ m, float sg, float tg,
-                              float scale, float offset) {
+                              float scale, float offset,
+                              const float* __restrict__ tab = nullptr,
+                              float iso = 0.f, int TX = 1, int TY = 1,
+                              int NTY = 1) {
   const float lam = m[1];
   const float fz = m[3];
   const float eye_s = m[6];
@@ -91,6 +134,9 @@ __device__ float sample_slice(const T* __restrict__ vol, size_t zstride,
     for (int a = 0; a < 2; ++a) {
       const int jx = jx0 + a;
       if (jx < 0 || jx >= X) continue;
+      if (TILED && !(__ldg(tab + (jx / TX) * NTY + jy / TY) >= iso)) {
+        continue;
+      }
       const size_t i = static_cast<size_t>(jx) * Y + jy;
       float sl = (1.f - fz) * load_f32(p0 + i) + fz * load_f32(p1 + i);
       sl = sl * scale + offset;
@@ -121,14 +167,27 @@ struct AoStore<true> {
   using type = __nv_bfloat16;
 };
 
-template <typename T, bool BF16, bool HAS_AO>
+// the tiled march's tile table (Zt rows of P + 1 floats), its isovalue and
+// the tile geometry; unused (null) by the flat march
+struct Tiles {
+  const float* tab;
+  int Zt, P, TX, TY, NTY;
+  float iso;
+  // the table row of the slice with meta row m
+  __device__ const float* row(const float* m) const {
+    const int zf = min(max(static_cast<int>(m[2]), 0), Zt - 1);
+    return tab + static_cast<size_t>(zf) * (P + 1);
+  }
+};
+
+template <typename T, bool BF16, bool HAS_AO, bool TILED>
 __global__ void __launch_bounds__(256)
 march_kernel(const T* __restrict__ vol,
              const typename AoStore<BF16>::type* __restrict__ ao,
              const float* __restrict__ meta,
              const float* __restrict__ s_grid,
              const float* __restrict__ t_grid, int K, int Z, int X, int Y,
-             int Sn, int Tn, float scale, float offset,
+             int Sn, int Tn, float scale, float offset, Tiles tl,
              float* __restrict__ m_hit, float* __restrict__ frac,
              float* __restrict__ g_s, float* __restrict__ g_t,
              float* __restrict__ g_z, float* __restrict__ sh) {
@@ -143,12 +202,16 @@ march_kernel(const T* __restrict__ vol,
   float fm1 = 0.f;
   for (int k = 0; k < K; ++k) {
     const float* m = meta + static_cast<size_t>(k) * kMeta;
-    if (!(m[4] > 0.5f)) {  // skipped slice: no update, Fm1 resets to 0
+    // skipped slice (tiled: also one with no occupied tile): no crossing
+    // test, Fm1 resets to 0
+    const float* tab_k = TILED ? tl.row(m) : nullptr;
+    if (!(m[4] > 0.5f) || (TILED && !(__ldg(tab_k + tl.P) >= tl.iso))) {
       fm1 = 0.f;
       continue;
     }
-    const float F = sample_slice<T, BF16>(vol, plane, Z, X, Y, m, sg, tg,
-                                          scale, offset);
+    const float F = sample_slice<T, BF16, TILED>(
+        vol, plane, Z, X, Y, m, sg, tg, scale, offset, tab_k, tl.iso, tl.TX,
+        tl.TY, tl.NTY);
     const float iso = m[5];
     if (F >= iso) {
       const float d = F - fm1;
@@ -157,20 +220,27 @@ march_kernel(const T* __restrict__ vol,
       o_m = static_cast<float>(k);
       o_gz = d;
       const float* mp = m - kMeta;
-      if (k > 0 && mp[4] > 0.5f) {
-        // Fm1 of the periodic neighbours: F of slice k-1 recomputed
+      const float* tab_p = TILED && k > 0 ? tl.row(mp) : nullptr;
+      if (k > 0 && mp[4] > 0.5f &&
+          (!TILED || __ldg(tab_p + tl.P) >= tl.iso)) {
+        // Fm1 of the periodic neighbours: F of slice k-1 recomputed (tiled:
+        // under slice k-1's occupancy)
         const int sp = s + 1 == Sn ? 0 : s + 1;
         const int sm = s == 0 ? Sn - 1 : s - 1;
         const int tp = t + 1 == Tn ? 0 : t + 1;
         const int tm = t == 0 ? Tn - 1 : t - 1;
-        const float f_sp = sample_slice<T, BF16>(
-            vol, plane, Z, X, Y, mp, s_grid[sp], tg, scale, offset);
-        const float f_sm = sample_slice<T, BF16>(
-            vol, plane, Z, X, Y, mp, s_grid[sm], tg, scale, offset);
-        const float f_tp = sample_slice<T, BF16>(
-            vol, plane, Z, X, Y, mp, sg, t_grid[tp], scale, offset);
-        const float f_tm = sample_slice<T, BF16>(
-            vol, plane, Z, X, Y, mp, sg, t_grid[tm], scale, offset);
+        const float f_sp = sample_slice<T, BF16, TILED>(
+            vol, plane, Z, X, Y, mp, s_grid[sp], tg, scale, offset, tab_p,
+            tl.iso, tl.TX, tl.TY, tl.NTY);
+        const float f_sm = sample_slice<T, BF16, TILED>(
+            vol, plane, Z, X, Y, mp, s_grid[sm], tg, scale, offset, tab_p,
+            tl.iso, tl.TX, tl.TY, tl.NTY);
+        const float f_tp = sample_slice<T, BF16, TILED>(
+            vol, plane, Z, X, Y, mp, sg, t_grid[tp], scale, offset, tab_p,
+            tl.iso, tl.TX, tl.TY, tl.NTY);
+        const float f_tm = sample_slice<T, BF16, TILED>(
+            vol, plane, Z, X, Y, mp, sg, t_grid[tm], scale, offset, tab_p,
+            tl.iso, tl.TX, tl.TY, tl.NTY);
         o_gs = 0.5f * (f_sp - f_sm);
         o_gt = 0.5f * (f_tp - f_tm);
       }
@@ -203,9 +273,9 @@ march_kernel(const T* __restrict__ vol,
 template <typename T, bool BF16>
 void launch(const void* vol, const void* ao, const void* meta,
             const void* s_grid, const void* t_grid, int K, int Z, int X,
-            int Y, int Sn, int Tn, float scale, float offset, void* m_hit,
-            void* frac, void* g_s, void* g_t, void* g_z, void* sh,
-            cudaStream_t stream) {
+            int Y, int Sn, int Tn, float scale, float offset, Tiles tl,
+            void* m_hit, void* frac, void* g_s, void* g_t, void* g_z,
+            void* sh, cudaStream_t stream) {
   using A = typename AoStore<BF16>::type;
   const dim3 block(32, 8);
   const dim3 grid((Tn + block.x - 1) / block.x, (Sn + block.y - 1) / block.y);
@@ -217,15 +287,137 @@ void launch(const void* vol, const void* ao, const void* meta,
   float* o[6] = {static_cast<float*>(m_hit), static_cast<float*>(frac),
                  static_cast<float*>(g_s), static_cast<float*>(g_t),
                  static_cast<float*>(g_z), static_cast<float*>(sh)};
-  if (ao != nullptr) {
-    march_kernel<T, BF16, true><<<grid, block, 0, stream>>>(
-        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, o[0], o[1],
+  if (tl.tab != nullptr) {
+    march_kernel<T, BF16, false, true><<<grid, block, 0, stream>>>(
+        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, tl, o[0], o[1],
+        o[2], o[3], o[4], o[5]);
+  } else if (ao != nullptr) {
+    march_kernel<T, BF16, true, false><<<grid, block, 0, stream>>>(
+        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, tl, o[0], o[1],
         o[2], o[3], o[4], o[5]);
   } else {
-    march_kernel<T, BF16, false><<<grid, block, 0, stream>>>(
-        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, o[0], o[1],
+    march_kernel<T, BF16, false, false><<<grid, block, 0, stream>>>(
+        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, tl, o[0], o[1],
         o[2], o[3], o[4], o[5]);
   }
+}
+
+// B4: see the note at the top.  One thread per intermediate pixel.
+template <typename S, bool BF16>
+__global__ void __launch_bounds__(256)
+ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
+                  long long sx, long long sy, const float* __restrict__ meta,
+                  const float* __restrict__ s_grid,
+                  const float* __restrict__ t_grid,
+                  const float* __restrict__ m_hit,
+                  const float* __restrict__ tab, int Zt, int K, int Z2,
+                  int X2, int Y2, int Sn, int Tn, int P, int TX, int TY,
+                  int NTY, int fd, float iso, float inv_f, float4 scale,
+                  float4 offset, float* __restrict__ sh) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = blockIdx.y * blockDim.y + threadIdx.y;
+  if (s >= Sn || t >= Tn) return;
+  const size_t o = static_cast<size_t>(s) * Tn + t;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  const float mh = m_hit[o];
+  // the march stores the crossing slice as float(k)
+  const int k = mh >= 0.f ? min(static_cast<int>(mh), K - 1) : 0;
+  const float* m = meta + static_cast<size_t>(k) * kMeta;
+  if (mh >= 0.f && m[4] > 0.5f) {
+    // the slice's row of the dilated table (fine voxels)
+    const float* tab_k =
+        tab + static_cast<size_t>(min(max(static_cast<int>(m[2]), 0),
+                                      Zt - 1)) * (P + 1);
+    const float lam = m[1];
+    const float eye_s = m[6];
+    const float eye_t = m[7];
+    float fz = m[3];
+    int zf = static_cast<int>(m[2]);
+    if (fd > 1) {
+      // the fine cell-centered z maps to coarse z / fd (coarse voxel j's
+      // center sits at fine (j + 0.5) * fd)
+      const float zc2 = m[0] / static_cast<float>(fd);
+      const float zf2 = fminf(fmaxf(floorf(zc2 - 0.5f), 0.f),
+                              static_cast<float>(Z2 - 2));
+      fz = fminf(fmaxf(zc2 - 0.5f - zf2, 0.f), 1.f);
+      zf = static_cast<int>(zf2);
+    }
+    zf = min(max(zf, 0), Z2 - 2);
+    const float s_pos = (eye_s + lam * (s_grid[s] - eye_s)) * inv_f;
+    const float t_pos = (eye_t + lam * (t_grid[t] - eye_t)) * inv_f;
+    const int jx0 = static_cast<int>(floorf(s_pos - 0.5f));
+    const int jy0 = static_cast<int>(floorf(t_pos - 0.5f));
+    // the two taps per axis: rounded weight and tile (-1: outside)
+    int xt[2], yt[2];
+    float wx[2], wy[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int jx = jx0 + a;
+      const int jy = jy0 + a;
+      xt[a] = (jx >= 0 && jx < X2) ? jx / TX : -1;
+      yt[a] = (jy >= 0 && jy < Y2) ? jy / TY : -1;
+      wx[a] = fmaxf(0.f, 1.f - fabsf(s_pos - (static_cast<float>(jx) + 0.5f)));
+      wy[a] = fmaxf(0.f, 1.f - fabsf(t_pos - (static_cast<float>(jy) + 0.5f)));
+      if (BF16) {
+        wx[a] = round_bf16(wx[a]);
+        wy[a] = round_bf16(wy[a]);
+      }
+    }
+    const float sc4[4] = {scale.x, scale.y, scale.z, scale.w};
+    const float of4[4] = {offset.x, offset.y, offset.z, offset.w};
+    const S* p0 = field + static_cast<long long>(zf) * sz;
+    const S* p1 = p0 + sz;
+    // pairs in increasing id xt * NTY + yt: distinct x tiles, then y tiles
+    for (int ia = 0; ia < 2; ++ia) {
+      const int pxt = xt[ia];
+      if (pxt < 0 || (ia == 1 && pxt == xt[0])) continue;
+      for (int ib = 0; ib < 2; ++ib) {
+        const int pyt = yt[ib];
+        if (pyt < 0 || (ib == 1 && pyt == yt[0])) continue;
+        if (!(__ldg(tab_k + pxt * NTY + pyt) >= iso)) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float term = 0.f;
+          for (int b = 0; b < 2; ++b) {
+            if (yt[b] != pyt) continue;
+            float tmp = 0.f;
+            for (int a = 0; a < 2; ++a) {
+              if (xt[a] != pxt) continue;
+              const long long i = (jx0 + a) * sx + (jy0 + b) * sy + c * sc;
+              float v = (1.f - fz) * load_f32(p0 + i) +
+                        fz * load_f32(p1 + i);
+              v = v * sc4[c] + of4[c];
+              if (BF16) v = round_bf16(v);
+              tmp += wx[a] * v;
+            }
+            if (BF16) tmp = round_bf16(tmp);
+            term += tmp * wy[b];
+          }
+          acc[c] += term;
+        }
+      }
+    }
+  }
+  const size_t n = static_cast<size_t>(Sn) * Tn;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) sh[c * n + o] = acc[c];
+}
+
+template <typename S, bool BF16>
+void launch_ao(const void* field, long long sz, long long sc, long long sx,
+               long long sy, const void* meta, const void* s_grid,
+               const void* t_grid, const void* m_hit, const void* tab, int Zt,
+               int K, int Z2, int X2, int Y2, int Sn, int Tn, int P, int TX,
+               int TY, int NTY, int fd, float iso, float inv_f, float4 scale,
+               float4 offset, void* sh, cudaStream_t stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((Tn + block.x - 1) / block.x, (Sn + block.y - 1) / block.y);
+  ao_capture_kernel<S, BF16><<<grid, block, 0, stream>>>(
+      static_cast<const S*>(field), sz, sc, sx, sy,
+      static_cast<const float*>(meta), static_cast<const float*>(s_grid),
+      static_cast<const float*>(t_grid), static_cast<const float*>(m_hit),
+      static_cast<const float*>(tab), Zt, K, Z2, X2, Y2, Sn, Tn, P, TX, TY,
+      NTY, fd, iso, inv_f, scale, offset, static_cast<float*>(sh));
 }
 
 }  // namespace
@@ -245,8 +437,9 @@ extern "C" int sweep_march(const void* vol, int store, int mm_bf16,
       (ao != nullptr && sh == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Tiles tl = {nullptr, 1, 0, 1, 1, 1, 0.f};
 #define MARCH_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
-    offset, m_hit, frac, g_s, g_t, g_z, sh, st
+    offset, tl, m_hit, frac, g_s, g_t, g_z, sh, st
   switch (store * 2 + (mm_bf16 ? 1 : 0)) {
     case 0: launch<float, false>(MARCH_ARGS); break;
     case 1: launch<float, true>(MARCH_ARGS); break;
@@ -257,5 +450,82 @@ extern "C" int sweep_march(const void* vol, int store, int mm_bf16,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MARCH_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled march (B2): the flat march's inputs and outputs (no AO) plus
+// tab, the (Zt, P + 1) tile table of (TX, TY) tiles (pair id
+// xt * NTY + yt; column P the row's largest), and the physical isovalue
+// it is compared with.  Returns the cudaGetLastError() code.
+extern "C" int sweep_march_tiled(const void* vol, int store, int mm_bf16,
+                                 const void* meta, const void* s_grid,
+                                 const void* t_grid, const void* tab, int Zt,
+                                 int K, int Z, int X, int Y, int Sn, int Tn,
+                                 int P, int TX, int TY, int NTY, float iso,
+                                 float scale, float offset, void* m_hit,
+                                 void* frac, void* g_s, void* g_t, void* g_z,
+                                 void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K < 1 || Z < 2 || X < 1 || Y < 1 || Sn < 1 || Tn < 1 || tab == nullptr ||
+      Zt < 1 || TX < 1 || TY < 1 || X % TX || Y % TY || NTY != Y / TY ||
+      P != (X / TX) * NTY) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Tiles tl = {static_cast<const float*>(tab), Zt, P, TX, TY, NTY, iso};
+  const void* ao = nullptr;
+  void* sh = nullptr;
+#define TILED_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
+    offset, tl, m_hit, frac, g_s, g_t, g_z, sh, st
+  switch (store * 2 + (mm_bf16 ? 1 : 0)) {
+    case 0: launch<float, false>(TILED_ARGS); break;
+    case 1: launch<float, true>(TILED_ARGS); break;
+    case 2: launch<__nv_bfloat16, false>(TILED_ARGS); break;
+    case 3: launch<__nv_bfloat16, true>(TILED_ARGS); break;
+    case 4: launch<uint8_t, false>(TILED_ARGS); break;
+    case 5: launch<uint8_t, true>(TILED_ARGS); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TILED_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled AO capture (B4): field (Z2, 4, X2, Y2) addressed through its
+// element strides (sz, sc, sx, sy), stored float32, bfloat16 or uint8
+// (store 0 / 1 / 2); the march's meta; m_hit (Sn, Tn) from the march;
+// tab the (Zt, P + 1) dilated tile table of the field tiles (TX, TY)
+// taken in fine voxels, compared with iso; fd the field downsample and
+// inv_f = 1 / fd in float32; per-channel scale and offset.  Writes sh
+// (4, Sn, Tn).  Returns the cudaGetLastError() code.
+extern "C" int ao_capture_tiled(const void* field, int store, int mm_bf16,
+                                long long sz, long long sc, long long sx,
+                                long long sy, const void* meta,
+                                const void* s_grid, const void* t_grid,
+                                const void* m_hit, const void* tab, int Zt,
+                                int K, int Z2, int X2, int Y2, int Sn, int Tn,
+                                int P, int TX, int TY, int NTY, int fd,
+                                float iso, float inv_f, float s0, float s1,
+                                float s2, float s3, float o0, float o1,
+                                float o2, float o3, void* sh, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K < 1 || Z2 < 2 || X2 < 1 || Y2 < 1 || Sn < 1 || Tn < 1 || TX < 1 ||
+      TY < 1 || X2 % TX || Y2 % TY || NTY != Y2 / TY ||
+      P != (X2 / TX) * NTY || tab == nullptr || Zt < 1 || fd < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float4 scale = make_float4(s0, s1, s2, s3);
+  const float4 offset = make_float4(o0, o1, o2, o3);
+#define AO_ARGS field, sz, sc, sx, sy, meta, s_grid, t_grid, m_hit, tab, Zt, \
+    K, Z2, X2, Y2, Sn, Tn, P, TX, TY, NTY, fd, iso, inv_f, scale, offset, sh, \
+    st
+  switch (store * 2 + (mm_bf16 ? 1 : 0)) {
+    case 0: launch_ao<float, false>(AO_ARGS); break;
+    case 1: launch_ao<float, true>(AO_ARGS); break;
+    case 2: launch_ao<__nv_bfloat16, false>(AO_ARGS); break;
+    case 3: launch_ao<__nv_bfloat16, true>(AO_ARGS); break;
+    case 4: launch_ao<uint8_t, false>(AO_ARGS); break;
+    case 5: launch_ao<uint8_t, true>(AO_ARGS); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef AO_ARGS
   return static_cast<int>(cudaGetLastError());
 }

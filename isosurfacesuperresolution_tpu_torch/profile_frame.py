@@ -1,10 +1,11 @@
 """Profile the port's fused 1080p frames on the card.
 
     python -m isosurfacesuperresolution_tpu_torch.profile_frame \
-        [--frames N] [--variants planar,phase,phase_ao,nonplanar]
+        [--frames N] [--variants planar,phase,phase_ao,nonplanar,...]
 
-Each variant drives the interactive frame (trained run00017 EnhanceNet,
-256^3 blobs, 480x270 -> 1920x1080, bf16 sweep, orbit steps of 0.03 rad):
+The first four variants drive the interactive frame (trained run00017
+EnhanceNet, 256^3 blobs, iso 0.5, 480x270 -> 1920x1080, bf16 sweep, orbit
+steps of 0.03 rad):
 
 * ``planar``: run00017 as it is through `InferencePipeline` (planar
   "auto" -> the planar engine, float32, dense tail);
@@ -13,6 +14,17 @@ Each variant drives the interactive frame (trained run00017 EnhanceNet,
 * ``phase_ao``: ``phase`` on the grid with the baked SH occlusion field
   (ao_samples 64, ao_mode "volume");
 * ``nonplanar``: the interleaved network (planar "off"), float32.
+
+The others run the large dense volume of `scripts/bench_volumes.py`,
+`blobs_volume(512)` stored uint8 (made once, on the host), iso 0.36, on
+the tiled march:
+
+* ``planar512``: the 512-tuned run00015 through `InferencePipeline`
+  (planar "auto"), orbit steps of 0.03 rad;
+* ``gbuffer512``, ``gbuffer512_ao``, ``gbuffer512_aoc``: the G-buffer
+  alone (`render_gbuffer_sweep`, orbit steps of 0.05 rad) without AO,
+  with the full-resolution bf16 field, with the half-resolution uint8
+  field kept coarse.
 
 For each it prints:
 
@@ -44,10 +56,14 @@ from isosurfacesuperresolution_tpu_torch.infer.pipeline import (
 from isosurfacesuperresolution_tpu_torch.render.ao_sweep import (
     attach_baked_ao)
 from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
+from isosurfacesuperresolution_tpu_torch.render.sweep import (
+    render_gbuffer_sweep)
 from isosurfacesuperresolution_tpu_torch.volume import analytic
 
-RUN_DIR = Path(__file__).resolve().parent.parent / "artifacts" / "run00017"
-VARIANTS = ("planar", "phase", "phase_ao", "nonplanar")
+ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
+RUN_DIR = ARTIFACTS / "run00017"
+VARIANTS = ("planar", "phase", "phase_ao", "nonplanar", "planar512",
+            "gbuffer512", "gbuffer512_ao", "gbuffer512_aoc")
 
 
 def cam_at(ang: float) -> CameraParams:
@@ -120,8 +136,44 @@ def main() -> None:
     grid = analytic.blobs_volume(256, num_blobs=8)
     phase_cfg = Config(model=dataclasses.replace(
         lm.cfg.model, compute_dtype="bfloat16", planar_phase_tail=True))
+    cfg512 = render_cfg.replace(isovalue=0.36)
+    grids512 = {}
+
+    def grid512(field: str):
+        """The 512^3 uint8 grid, made once, with its AO field baked on
+        first use."""
+        if "" not in grids512:
+            t = time.time()
+            grids512[""] = analytic.blobs_volume(512, store_dtype="uint8")
+            print(f"blobs_volume(512) uint8: {time.time() - t:.1f} s")
+        if field not in grids512:
+            kw = (dict(out_dtype=torch.bfloat16) if field == "ao" else
+                  dict(downsample=2, keep_coarse=True, out_dtype="uint8"))
+            grids512[field] = attach_baked_ao(grids512[""], 0.36, 0.2, **kw)
+        return grids512[field]
+
     for variant in variants:
         print(f"== {variant}", flush=True)
+        if variant == "planar512":
+            lm15 = LoadedModel.from_run_dir(str(ARTIFACTS / "run00015"))
+            pipe = InferencePipeline(lm15.model, lm15.cfg, cfg512)
+            g = grid512("")
+
+            def step(i, pipe=pipe, g=g):
+                pipe.frame(g, cam_at(0.03 * i))
+            profile(step, args.frames)
+            continue
+        if variant.startswith("gbuffer512"):
+            field = variant[len("gbuffer512_"):]
+            g = grid512(field)
+            rcfg = (cfg512.replace(ao_samples=64, ao_mode="volume") if field
+                    else cfg512)
+
+            def step(i, g=g, rcfg=rcfg):
+                render_gbuffer_sweep(g, cam_at(0.05 * i),
+                                     cam_at(0.05 * i - 0.03), rcfg)
+            profile(step, args.frames)
+            continue
         cfg, rcfg, g = lm.cfg, render_cfg, grid
         if variant in ("phase", "phase_ao"):
             cfg = phase_cfg

@@ -1,23 +1,35 @@
 """Perspective shear-warp sweep renderer: the isosurface G-buffer.
 
-Counterpart of the JAX package's `render/sweep.py` (flat, non-tiled
-form, without AO or with a baked full-resolution AO field).  The volume
-axis most parallel to the view is the sweep axis; rays through the eye
-and a regular (s, t) grid on the entry-side base plane
-cross every slice plane in an axis-aligned scale + translate of that grid,
-so the march (`render/sweep_march.py`) resamples each slice with two 2-tap
-tent filters, refines the first crossing by inverse lerp and captures
-frustum-space gradients; the chain rule through the shear turns them into
-volume normals, and one homography maps the intermediate G-buffer to the
-image with a two-pass separable resample.  With a baked SH occlusion
-field (`render/ao_sweep.attach_baked_ao`) the march also captures the
-field at the hit plane and the AO channel is ``ao_from_sh(sh, normal)``.
+Counterpart of the JAX package's `render/sweep.py` (dense volumes).  The
+volume axis most parallel to the view is the sweep axis; rays through the
+eye and a regular (s, t) grid on the entry-side base plane cross every
+slice plane in an axis-aligned scale + translate of that grid, so each
+slice is resampled with two 2-tap tent filters, the first crossing is
+refined by inverse lerp and frustum-space gradients are captured; the
+chain rule through the shear turns them into volume normals, and one
+homography maps the intermediate G-buffer to the image with a two-pass
+separable resample.  With a baked SH occlusion field
+(`render/ao_sweep.attach_baked_ao`) the field is captured at the hit
+plane and the AO channel is ``ao_from_sh(sh, normal)``.
+
+Three marches, chosen as in the JAX package:
+
+* ``renderer="sweep"``: the reference's slice scan (`scan_march`), in
+  stock PyTorch ops, rounding where the scan rounds; an oracle path;
+* ``renderer="sweep_pallas"``, small slice planes: the flat march kernel
+  (`render/sweep_march.py`, B1), with the AO field captured in the march;
+* ``renderer="sweep_pallas"`` with ``sweep_tile`` > 0, or 0 and a slice
+  plane of at least 512 on an axis: the occupancy-gated tiled march (B2)
+  and a second pass for the AO field (B4) (`render/sweep_tiled.py`).
+
+A coarse AO field (``ao_downsample`` > 1) is sampled natively by B4; the
+other two marches get it dequantized and upsampled linearly first.
 
 All geometry that depends on the camera alone (major axis and flip, base
 plane, s/t grids, the per-slice table except its cull flag, the homography
 and the choice of warp order) is computed on the host in float32 and goes
-to the device in one copy; only the cull flag reads the device-side
-per-slice maximum.  Nothing in a frame waits for the device.
+to the device in one copy; the cull flag and the tile occupancy read only
+device data.  Nothing in a frame of the kernel paths waits for the device.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from isosurfacesuperresolution_tpu_torch.config import RenderConfig
 from isosurfacesuperresolution_tpu_torch.ops.separable_warp import (
@@ -34,7 +47,10 @@ from isosurfacesuperresolution_tpu_torch.render.ao_sweep import ao_from_sh
 from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
 from isosurfacesuperresolution_tpu_torch.render.params import RenderParams
 from isosurfacesuperresolution_tpu_torch.render.raycast import shade_hits
-from isosurfacesuperresolution_tpu_torch.render.sweep_march import march
+from isosurfacesuperresolution_tpu_torch.render.sweep_march import (
+    _round, march)
+from isosurfacesuperresolution_tpu_torch.render.sweep_tiled import (
+    ao_capture_tiled, march_tiled, per_channel, pick_tile, tile_table)
 from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
 
 _PERMS = ((1, 2, 0), (0, 2, 1), (0, 1, 2))  # axis 0 / 1 / 2 as major (last)
@@ -161,20 +177,61 @@ def plan_sweep(grid: BrickGrid, cam: CameraParams, cfg: RenderConfig,
                      s_grid, t_grid, hmat, swap)
 
 
+def _dequant_field(ao: torch.Tensor, scale, offset) -> torch.Tensor:
+    """Stored (..., 4) SH field -> float32 physical values, per channel."""
+    # host scalars per channel: no host-to-device copy in the frame
+    scale, offset = per_channel(scale), per_channel(offset)
+    return torch.stack([ao[..., c].to(_F32) * scale[c] + offset[c]
+                        for c in range(4)], -1)
+
+
+def fine_ao_field(grid: BrickGrid):
+    """The baked field at the volume's resolution as (field, scale,
+    offset): a coarse field (``ao_downsample`` > 1) is dequantized and
+    upsampled linearly with cell-centered samples (the JAX package's
+    ``jax.image.resize(..., "linear")``), with scale 1 and offset 0."""
+    if grid.ao_downsample <= 1:
+        return grid.ao_sh, grid.ao_scale, grid.ao_offset
+    deq = _dequant_field(grid.ao_sh, grid.ao_scale, grid.ao_offset)
+    up = F.interpolate(deq.permute(3, 0, 1, 2)[None], size=grid.resolution,
+                       mode="trilinear", align_corners=False)
+    return up[0].permute(1, 2, 3, 0), 1.0, 0.0
+
+
+def field_zcxy(ao: torch.Tensor, perm: Tuple[int, int, int]
+               ) -> torch.Tensor:
+    """An (X, Y, Z, 4) field as a (Z, 4, X, Y) view in the march's order."""
+    return ao.permute(perm[2], 3, perm[0], perm[1])
+
+
 def ao_field_zcxy(grid: BrickGrid, perm: Tuple[int, int, int]
                   ) -> torch.Tensor:
-    """The grid's baked (X, Y, Z, 4) SH field as a (Z', 4, X', Y') view in
-    the march's axis order; a uint8 field is dequantized first (float32,
-    per-channel scale and offset), as the JAX package's flat path does.
-    The march copies the view into its own contiguous storage."""
-    ao = grid.ao_sh
+    """The grid's baked SH field for the flat march: at the volume's
+    resolution (`fine_ao_field`), a uint8 field dequantized (float32,
+    per-channel scale and offset), as a (Z, 4, X, Y) view in the march's
+    axis order, as the JAX package's flat path does.  The march copies
+    the view into its own contiguous storage."""
+    ao, scale, offset = fine_ao_field(grid)
     if ao.dtype == torch.uint8:
-        # host scalars per channel: no host-to-device copy in the frame
-        scale = torch.tensor(grid.ao_scale, dtype=_F32).expand(4).tolist()
-        offset = torch.tensor(grid.ao_offset, dtype=_F32).expand(4).tolist()
-        ao = torch.stack([ao[..., c].to(_F32) * scale[c] + offset[c]
-                          for c in range(4)], -1)
-    return ao.permute(perm[2], 3, perm[0], perm[1])
+        ao = _dequant_field(ao, scale, offset)
+    return field_zcxy(ao, perm)
+
+
+def use_tiled(cfg: RenderConfig, plan: SweepPlan, grid: BrickGrid) -> bool:
+    """The JAX package's rule: the tiled march under "sweep_pallas" when
+    ``sweep_tile`` > 0, or 0 and the slice plane spans 512 on an axis."""
+    X, Y = grid.resolution[plan.perm[0]], grid.resolution[plan.perm[1]]
+    tile = cfg.sweep_tile
+    return cfg.renderer == "sweep_pallas" and (
+        tile > 0 or (tile == 0 and max(X, Y) >= 512))
+
+
+def _iso_stored(grid: BrickGrid, rp: RenderParams) -> float:
+    """The isovalue in the volume's stored units (float32)."""
+    iso = torch.tensor(rp.isovalue, dtype=_F32)
+    if grid.value_scale != 1.0 or grid.value_offset != 0.0:
+        iso = (iso - grid.value_offset) / grid.value_scale
+    return iso.item()
 
 
 def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
@@ -190,12 +247,9 @@ def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
     perm = plan.perm
     vmax_z = torch.amax(grid.values,
                         dim=tuple(a for a in range(3) if a != perm[2]))
-    iso_stored = torch.tensor(rp.isovalue, dtype=_F32)
-    if grid.value_scale != 1.0 or grid.value_offset != 0.0:
-        iso_stored = (iso_stored - grid.value_offset) / grid.value_scale
     zf = meta[:, 2].long()
     smax = torch.maximum(vmax_z[zf], vmax_z[zf + 1]).to(_F32)
-    meta[:, 4] *= (smax >= iso_stored.item()).to(_F32)
+    meta[:, 4] *= (smax >= _iso_stored(grid, rp)).to(_F32)
     return dict(vol_zxy=grid.values.permute(perm[2], perm[0], perm[1]),
                 meta=meta, s_grid=s_grid, t_grid=t_grid, Sn=plan.Sn,
                 Tn=plan.Tn, dtype=getattr(torch, cfg.sweep_dtype),
@@ -203,14 +257,165 @@ def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
                 ao_zcxy=ao_field_zcxy(grid, perm) if use_ao_field else None)
 
 
+def tiled_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
+                 rp: RenderParams) -> dict:
+    """The keyword arguments of `sweep_tiled.march_tiled` for this view:
+    the flat march's (no AO field) plus the brick pyramid's max in the
+    march's axis order, the physical isovalue, the tile and the tile table
+    the kernel reads (`grid_tile_table`)."""
+    if grid.brick_max is None:
+        raise ValueError("the tiled march needs the grid's brick pyramid "
+                         "(BrickGrid.from_dense builds it)")
+    args = march_inputs(grid, plan, cfg, rp)
+    del args["ao_zcxy"]
+    tile = cfg.sweep_tile if cfg.sweep_tile > 0 else 256
+    X, Y = args["vol_zxy"].shape[1:]
+    table = grid_tile_table(grid, plan.perm, X, Y, pick_tile(X, tile),
+                            pick_tile(Y, tile), False)
+    return dict(args, brick_max_p=grid.brick_max.permute(plan.perm),
+                brick_size=grid.brick_size, iso=rp.isovalue, tile=tile,
+                table=table)
+
+
+def grid_tile_table(grid: BrickGrid, perm: Tuple[int, int, int], X: int,
+                    Y: int, TX: int, TY: int, dilate: bool) -> torch.Tensor:
+    """`sweep_tiled.tile_table` of the grid's brick pyramid in the axis
+    order ``perm``, built at first use and kept in ``grid.derived``: it
+    does not depend on the camera, so a frame makes no table."""
+    key = ("tile_table", perm, X, Y, TX, TY, dilate)
+    table = grid.derived.get(key)
+    if table is None:
+        table = grid.derived[key] = tile_table(
+            grid.brick_max.permute(perm), grid.brick_size, X, Y, TX, TY,
+            dilate)
+    return table
+
+
+def ao_tile_table(grid: BrickGrid, perm: Tuple[int, int, int]
+                  ) -> torch.Tensor:
+    """The dilated tile table the tiled AO capture reads for the grid's
+    field (`grid_tile_table`): tiles of 128 field voxels, the capture's
+    default, taken in fine voxels."""
+    fd = grid.ao_downsample
+    X2, Y2 = (grid.ao_sh.shape[a] for a in perm[:2])
+    return grid_tile_table(grid, perm, X2 * fd, Y2 * fd,
+                           pick_tile(X2, 128) * fd, pick_tile(Y2, 128) * fd,
+                           True)
+
+
+def scan_march(vol_zxy: torch.Tensor, meta: torch.Tensor,
+               s_grid: torch.Tensor, t_grid: torch.Tensor, Sn: int, Tn: int,
+               dtype: torch.dtype, scale: float, offset: float,
+               iso_stored: float, ao_zcxy: "torch.Tensor | None" = None,
+               ao_scale=1.0, ao_offset=0.0) -> Tuple[torch.Tensor, ...]:
+    """The JAX package's slice scan (``renderer="sweep"``) over the K
+    slice planes, in stock PyTorch ops on the tensors' device.
+
+    The march's inputs, except that ``meta`` column 4 holds the validity
+    alone: the scan culls a slice itself when its stored max is under
+    ``iso_stored``.  Its own rules, where they differ from the kernels':
+    a culled slice has F = 0 and an invalid one too, and the crossing test
+    runs on every valid slice; the volume is lerped in float32 from its
+    stored type and rounded to ``dtype`` after; the AO field (stored type,
+    any ``ao_scale``/``ao_offset``) is lerped and resampled in float32
+    with the dequant after the lerp.  Returns the march's five outputs and
+    sh (4, Sn, Tn) (zeros without a field).  An oracle path: the loop is
+    steered from the host."""
+    Z, X, Y = vol_zxy.shape
+    dev = vol_zxy.device
+    rows = meta.cpu().tolist()
+    vmax = torch.amax(vol_zxy, dim=(1, 2)).to(_F32).cpu().tolist()
+    ix = torch.arange(X, dtype=_F32, device=dev)
+    iy = torch.arange(Y, dtype=_F32, device=dev)
+    zero = torch.zeros((Sn, Tn), dtype=_F32, device=dev)
+    m_hit = zero - 1.0
+    frac, fm1, g_s, g_t, g_z = (zero.clone() for _ in range(5))
+    zero4 = torch.zeros((4, Sn, Tn), dtype=_F32, device=dev)
+    sh = zero4
+    if ao_zcxy is not None:
+        a_scale = torch.tensor(per_channel(ao_scale), device=dev)
+        a_off = torch.tensor(per_channel(ao_offset), device=dev)
+    for k, (_, lam, zf, fz, valid, iso, eye_s, eye_t) in enumerate(rows):
+        zf = int(zf)
+        valid = valid > 0.5
+        F_k, sh_k = zero, zero4
+        if valid and max(vmax[zf], vmax[zf + 1]) >= iso_stored:
+            # interpolation matrices as `ops.separable_warp.interp_matrix`
+            p_x = (eye_s + lam * (s_grid - eye_s)) - 0.5
+            p_y = (eye_t + lam * (t_grid - eye_t)) - 0.5
+            wx = torch.clamp(1.0 - torch.abs(p_x[:, None] - ix), min=0.0)
+            wy = torch.clamp(1.0 - torch.abs(p_y[:, None] - iy), min=0.0)
+            sl = ((1.0 - fz) * vol_zxy[zf].to(_F32)
+                  + fz * vol_zxy[zf + 1].to(_F32)) * scale + offset
+            tmp = _round(wx, dtype) @ _round(sl, dtype)
+            F_k = _round(tmp, dtype) @ _round(wy, dtype).t()
+            if ao_zcxy is not None:
+                asl = ((1.0 - fz) * ao_zcxy[zf].to(_F32)
+                       + fz * ao_zcxy[zf + 1].to(_F32))
+                asl = asl * a_scale[:, None, None] + a_off[:, None, None]
+                sh_k = (wx @ asl) @ wy.t()                  # (4, Sn, Tn)
+        crossing = (m_hit < 0.0) & (F_k >= iso) & valid
+        d = F_k - fm1
+        denom = torch.where(torch.abs(d) > 1e-12, d, 1e-12)
+        new_frac = torch.clamp((iso - fm1) / denom, 0.0, 1.0)
+        m_hit = torch.where(crossing, float(k), m_hit)
+        frac = torch.where(crossing, new_frac, frac)
+        g_s = torch.where(crossing, 0.5 * (torch.roll(fm1, -1, 0)
+                                           - torch.roll(fm1, 1, 0)), g_s)
+        g_t = torch.where(crossing, 0.5 * (torch.roll(fm1, -1, 1)
+                                           - torch.roll(fm1, 1, 1)), g_t)
+        g_z = torch.where(crossing, d, g_z)
+        if ao_zcxy is not None:
+            sh = torch.where(crossing, sh_k, sh)
+        fm1 = F_k
+    return m_hit, frac, g_s, g_t, g_z, sh
+
+
+def _march(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
+           rp: RenderParams, use_ao_field: bool):
+    """The view's march by the renderer's rule: (m_hit, frac, g_s, g_t,
+    g_z, sh or None, s_grid, t_grid) on the grid's device."""
+    dtype = getattr(torch, cfg.sweep_dtype)
+    perm = plan.perm
+    if cfg.renderer == "sweep":
+        meta, s_dev, t_dev = upload(grid.values.device, plan.meta,
+                                    plan.s_grid, plan.t_grid)
+        ao, ao_scale, ao_offset = (fine_ao_field(grid) if use_ao_field
+                                   else (None, 1.0, 0.0))
+        *outs, sh = scan_march(
+            grid.values.permute(perm[2], perm[0], perm[1]), meta, s_dev,
+            t_dev, plan.Sn, plan.Tn, dtype, grid.value_scale,
+            grid.value_offset, _iso_stored(grid, rp),
+            None if ao is None else field_zcxy(ao, perm), ao_scale,
+            ao_offset)
+        return (*outs, sh if use_ao_field else None, s_dev, t_dev)
+    if use_tiled(cfg, plan, grid):
+        args = tiled_inputs(grid, plan, cfg, rp)
+        outs = march_tiled(**args)
+        sh = None
+        if use_ao_field:
+            sh = ao_capture_tiled(
+                field_zcxy(grid.ao_sh, perm), args["meta"], args["s_grid"],
+                args["t_grid"], plan.Sn, plan.Tn, outs[0],
+                args["brick_max_p"], grid.brick_size, rp.isovalue,
+                dtype=dtype, ao_scale=grid.ao_scale,
+                ao_offset=grid.ao_offset,
+                field_downsample=grid.ao_downsample,
+                table=ao_tile_table(grid, perm))
+        return (*outs, sh, args["s_grid"], args["t_grid"])
+    args = march_inputs(grid, plan, cfg, rp, use_ao_field)
+    outs = march(**args)
+    sh = outs[5] if use_ao_field else None
+    return (*outs[:5], sh, args["s_grid"], args["t_grid"])
+
+
 def _sweep(grid: BrickGrid, plan: SweepPlan, cam: CameraParams,
            cam_flow: CameraParams, cfg: RenderConfig,
            rp: RenderParams, use_ao_field: bool) -> torch.Tensor:
     dev = grid.values.device
     W, H = cfg.width, cfg.height
-    args = march_inputs(grid, plan, cfg, rp, use_ao_field)
-    m_hit, frac, g_s, g_t, g_z, *sh = march(**args)
-    s_dev, t_dev = args["s_grid"], args["t_grid"]
+    m_hit, frac, g_s, g_t, g_z, sh, s_dev, t_dev = _march(
+        grid, plan, cfg, rp, use_ao_field)
     found = m_hit >= 0.0
     perm, zss, Z, flip = plan.perm, plan.zss, plan.Z, plan.flip
     sigma = -1.0 if flip else 1.0
@@ -247,7 +452,7 @@ def _sweep(grid: BrickGrid, plan: SweepPlan, cam: CameraParams,
     flat_hit = found.reshape(-1)
     if use_ao_field:
         # baked SH-L1 occlusion captured at the hit plane
-        ao = ao_from_sh(sh[0].permute(1, 2, 0), normal_w).reshape(-1)
+        ao = ao_from_sh(sh.permute(1, 2, 0), normal_w).reshape(-1)
     else:
         ao = torch.ones_like(flat_hit, dtype=_F32)
     inter = shade_hits(hit_world.reshape(-1, 3), normal_w.reshape(-1, 3),
@@ -310,10 +515,6 @@ def render_gbuffer_sweep(grid: BrickGrid, cam: CameraParams,
             "hemisphere-ray AO is not ported (ROADMAP.md, queue A): bake "
             "the field with render.ao_sweep.attach_baked_ao, or set "
             "ao_samples=0")
-    if use_ao_field and grid.ao_downsample > 1:
-        raise NotImplementedError(
-            "a coarse AO field (ao_downsample > 1) is not ported on the "
-            "flat path (ROADMAP.md, queue A): bake with keep_coarse=False")
     if rp is None:
         rp = RenderParams.from_config(cfg)
     return _sweep(grid, plan_sweep(grid, cam, cfg, rp), cam, cam_flow, cfg,

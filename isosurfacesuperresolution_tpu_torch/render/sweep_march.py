@@ -71,10 +71,16 @@ def march_plain(vol_zxy: torch.Tensor, meta: torch.Tensor,
                 s_grid: torch.Tensor, t_grid: torch.Tensor,
                 Sn: int, Tn: int, dtype: torch.dtype = torch.bfloat16,
                 scale: float = 1.0, offset: float = 0.0,
-                ao_zcxy: Optional[torch.Tensor] = None
+                ao_zcxy: Optional[torch.Tensor] = None,
+                occ: Optional[torch.Tensor] = None,
+                tile: Tuple[int, int] = (1, 1)
                 ) -> Tuple[torch.Tensor, ...]:
     """The march as a Python loop over slices with dense interpolation
-    matrices: F = wx @ slice @ wy^T, operands rounded to ``dtype``."""
+    matrices: F = wx @ slice @ wy^T, operands rounded to ``dtype``.
+
+    ``occ`` (K, NTX, NTY) bool, with ``tile`` = (TX, TY): the tiled
+    march's tap mask; on slice k the values of tiles not set in occ[k]
+    are zeroed before the first factor (`sweep_tiled.march_tiled_plain`)."""
     vol = vol_zxy.to(_store_dtype(vol_zxy, dtype))
     ao = None if ao_zcxy is None else ao_zcxy.to(dtype)
     Z, X, Y = vol.shape
@@ -95,12 +101,16 @@ def march_plain(vol_zxy: torch.Tensor, meta: torch.Tensor,
         zf = int(zf)
         sl = ((1.0 - fz) * vol[zf].to(torch.float32)
               + fz * vol[zf + 1].to(torch.float32))
-        sl = sl * scale + offset
+        sl = _round(sl * scale + offset, dtype)
+        if occ is not None:
+            keep = occ[k].repeat_interleave(tile[0], 0).repeat_interleave(
+                tile[1], 1)
+            sl = torch.where(keep, sl, 0.0)
         s_pos = eye_s + lam * (s_grid - eye_s)
         t_pos = eye_t + lam * (t_grid - eye_t)
         wx = torch.clamp(1.0 - torch.abs(s_pos[:, None] - jx), min=0.0)
         wy = torch.clamp(1.0 - torch.abs(t_pos[:, None] - jy), min=0.0)
-        tmp = _round(wx, dtype) @ _round(sl, dtype)
+        tmp = _round(wx, dtype) @ sl
         F = _round(tmp, dtype) @ _round(wy, dtype).t()
         crossing = (m_hit < 0.0) & (F >= iso)
         d = F - fm1
@@ -124,6 +134,22 @@ def march_plain(vol_zxy: torch.Tensor, meta: torch.Tensor,
     if ao is not None:
         return m_hit, frac, g_s, g_t, g_z, sh
     return m_hit, frac, g_s, g_t, g_z
+
+
+def check_tables(dev: torch.device, meta: torch.Tensor,
+                 s_grid: torch.Tensor, t_grid: torch.Tensor, Sn: int,
+                 Tn: int) -> Tuple[torch.Tensor, ...]:
+    """Check the slice table and the grids a march kernel reads (float32,
+    their shapes, on ``dev``); returns them contiguous."""
+    K = meta.shape[0]
+    checks = ((meta, (K, 8)), (s_grid, (Sn,)), (t_grid, (Tn,)))
+    for name, (x, shape) in zip(("meta", "s_grid", "t_grid"), checks):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, the volume on {dev}")
+    return tuple(x.contiguous() for x in (meta, s_grid, t_grid))
 
 
 def _kernel():
@@ -158,15 +184,8 @@ def march(vol_zxy: torch.Tensor, meta: torch.Tensor,
     if vol.dim() != 3 or vol.shape[0] < 2:
         raise ValueError(f"vol_zxy must be (Z >= 2, X, Y), got "
                          f"{tuple(vol.shape)}")
+    meta, s_grid, t_grid = check_tables(dev, meta, s_grid, t_grid, Sn, Tn)
     K = meta.shape[0]
-    checks = ((meta, (K, 8)), (s_grid, (Sn,)), (t_grid, (Tn,)))
-    for name, (x, shape) in zip(("meta", "s_grid", "t_grid"), checks):
-        if tuple(x.shape) != shape or x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, the volume on {dev}")
-    meta, s_grid, t_grid = (x.contiguous() for x in (meta, s_grid, t_grid))
     Z, X, Y = vol.shape
     outs = [torch.empty((Sn, Tn), dtype=torch.float32, device=dev)
             for _ in range(5)]

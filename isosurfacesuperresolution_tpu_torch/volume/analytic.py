@@ -21,6 +21,7 @@ def _grid_coords(resolution: int):
 def sphere_volume(resolution: int = 64, radius: float = 0.3,
                   center: Tuple[float, float, float] = (0.0, 0.0, 0.0),
                   sharpness: float = 8.0,
+                  brick_size: int = 8,
                   store_dtype: str = "float32",
                   device: DeviceLike = None) -> BrickGrid:
     """Radial ramp through 0.5 at ``radius``."""
@@ -28,11 +29,12 @@ def sphere_volume(resolution: int = 64, radius: float = 0.3,
     cx, cy, cz = center
     r = np.sqrt((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2)
     d = np.clip(0.5 - sharpness * (r - radius), 0.0, 1.0).astype(np.float32)
-    return BrickGrid.from_dense(d, store_dtype=store_dtype, device=device)
+    return BrickGrid.from_dense(d, brick_size=brick_size,
+                                store_dtype=store_dtype, device=device)
 
 
 def blobs_volume(resolution: int = 64, num_blobs: int = 6, seed: int = 0,
-                 store_dtype: str = "float32",
+                 brick_size: int = 8, store_dtype: str = "float32",
                  device: DeviceLike = None) -> BrickGrid:
     """Random metaballs from ``seed``."""
     rng = np.random.RandomState(seed)
@@ -44,4 +46,5 @@ def blobs_volume(resolution: int = 64, num_blobs: int = 6, seed: int = 0,
         r2 = (x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2
         d += np.exp(-r2 / (2 * (rad / 2) ** 2))
     d = np.clip(d, 0.0, 1.0).astype(np.float32)
-    return BrickGrid.from_dense(d, store_dtype=store_dtype, device=device)
+    return BrickGrid.from_dense(d, brick_size=brick_size,
+                                store_dtype=store_dtype, device=device)

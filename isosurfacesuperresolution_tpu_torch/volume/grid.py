@@ -1,11 +1,13 @@
 """Dense volume grid with its world transform.
 
-Counterpart of the JAX package's `volume/grid.py`.  The brick min/max
-pyramid there serves only the tiled march kernels, which are not ported
-yet, so this `BrickGrid` holds the dense values and the transform:
+Counterpart of the JAX package's `volume/grid.py`:
 
 * ``values``: (X, Y, Z) densities on the device, stored as float32,
   bfloat16 or uint8 (physical = stored * ``value_scale`` + ``value_offset``);
+* ``brick_min`` / ``brick_max``: (X/b, Y/b, Z/b) float32 bounds of the
+  physical values of each ``brick_size``-voxel brick plus a one-voxel
+  apron, on the device (`compute_brick_minmax`); the tiled march culls
+  slice tiles with them.  None for a grid built without them;
 * ``bbox_min`` / ``bbox_max``: (3,) float32 world bounds, kept on the host
   because only camera geometry (computed on the host) and per-axis scalars
   read them;
@@ -13,7 +15,10 @@ yet, so this `BrickGrid` holds the dense values and the transform:
   device (`render/ao_sweep.attach_baked_ao`), stored as float32, bfloat16
   or uint8 (physical = stored * ``ao_scale`` + ``ao_offset``; scale and
   offset are floats or per-channel 4-tuples), at 1/``ao_downsample`` of
-  the volume's resolution per axis.
+  the volume's resolution per axis;
+* ``derived``: device tables derived from the fields above and built at
+  first use (the tiled renderer's tile tables); not an init argument, so
+  `dataclasses.replace` starts a new grid with none.
 """
 
 from __future__ import annotations
@@ -28,17 +33,25 @@ from isosurfacesuperresolution_tpu_torch.device import (
     DeviceLike, resolve_device)
 
 
+DEFAULT_BRICK_SIZE = 8
+
+
 @dataclasses.dataclass
 class BrickGrid:
     values: torch.Tensor
     bbox_min: torch.Tensor
     bbox_max: torch.Tensor
+    brick_min: Optional[torch.Tensor] = None
+    brick_max: Optional[torch.Tensor] = None
+    brick_size: int = DEFAULT_BRICK_SIZE
     value_scale: float = 1.0
     value_offset: float = 0.0
     ao_sh: Optional[torch.Tensor] = None
     ao_scale: Union[float, Tuple[float, ...]] = 1.0
     ao_offset: Union[float, Tuple[float, ...]] = 0.0
     ao_downsample: int = 1
+    derived: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     def dequant(self, stored: torch.Tensor) -> torch.Tensor:
         """Stored-type values -> physical float32 densities."""
@@ -74,8 +87,20 @@ class BrickGrid:
         return torch.stack([v[..., i] / float(r) * span[i] + lo[i]
                             for i, r in enumerate(self.resolution)], -1)
 
+    def brick_max_at(self, vox: torch.Tensor) -> torch.Tensor:
+        """Max value of the brick holding voxel coordinate (..., 3); -inf
+        outside the volume, so empty space outside is always skippable."""
+        bmax = self.brick_max
+        bshape = torch.tensor(bmax.shape, device=bmax.device)
+        idx = torch.floor(vox.to(bmax.device) / self.brick_size).long()
+        inside = ((idx >= 0) & (idx < bshape)).all(-1)
+        idx = torch.minimum(torch.clamp(idx, min=0), bshape - 1)
+        v = bmax[idx[..., 0], idx[..., 1], idx[..., 2]]
+        return torch.where(inside, v, -torch.inf)
+
     @classmethod
     def from_dense(cls, values: np.ndarray,
+                   brick_size: int = DEFAULT_BRICK_SIZE,
                    normalize_box: bool = True,
                    bbox: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                    store_dtype: str = "float32",
@@ -85,7 +110,9 @@ class BrickGrid:
         ``normalize_box``: scale uniformly so the longest side spans one
         world unit, centered at the origin.  ``store_dtype``: ``float32``,
         ``bfloat16`` (round to nearest even) or ``uint8`` (affine over the
-        value range; uint8 input keeps its bytes with scale 1/255)."""
+        value range; uint8 input keeps its bytes with scale 1/255).  The
+        brick pyramid bounds the dequantized stored values, what the
+        renderer samples, so culling stays conservative after rounding."""
         dev = resolve_device(device)
         raw_in = values
         values = np.asarray(values, np.float32)
@@ -119,7 +146,50 @@ class BrickGrid:
             stored = torch.from_numpy(np.ascontiguousarray(q))
         else:
             raise ValueError(f"unknown store_dtype {store_dtype!r}")
+        physical = (stored.to(torch.float32).numpy() * np.float32(scale)
+                    + np.float32(offset))
+        bmin, bmax = compute_brick_minmax(physical, brick_size)
+        del physical
         return cls(values=stored.to(dev),
                    bbox_min=torch.from_numpy(np.asarray(bbox_min, np.float32)),
                    bbox_max=torch.from_numpy(np.asarray(bbox_max, np.float32)),
-                   value_scale=scale, value_offset=offset)
+                   brick_min=torch.from_numpy(bmin).to(dev),
+                   brick_max=torch.from_numpy(bmax).to(dev),
+                   brick_size=brick_size, value_scale=scale,
+                   value_offset=offset)
+
+
+def compute_brick_minmax(values: np.ndarray, brick_size: int
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-brick min/max of a (X, Y, Z) array with a one-voxel apron on
+    every side, as float32 numpy arrays (X/b, Y/b, Z/b) (sizes rounded up).
+
+    A trilinear sample inside brick B interpolates voxels up to one index
+    outside B, so B's bounds include them.  The volume is first padded with
+    its edge values to a multiple of b, which never widens the range; the
+    pool runs on the host (one-time preprocessing)."""
+    b = brick_size
+    values = np.asarray(values, np.float32)
+    X, Y, Z = values.shape
+    v = np.pad(values, ((0, (-X) % b), (0, (-Y) % b), (0, (-Z) % b)),
+               mode="edge")
+
+    def pool(op, pad_val):
+        # separable sliding window of length b + 2 at stride b (brick core
+        # plus apron) along each axis; the apron pad is op's identity
+        out = np.pad(v, 1, mode="constant", constant_values=pad_val)
+        for ax in range(3):
+            nb = v.shape[ax] // b
+            acc = None
+            sl = [slice(None)] * 3
+            for d in range(b + 2):
+                sl[ax] = slice(d, d + (nb - 1) * b + 1, b)
+                part = out[tuple(sl)]
+                if acc is None:
+                    acc = part.copy()
+                else:
+                    op(acc, part, out=acc)
+            out = acc
+        return out
+
+    return pool(np.minimum, np.inf), pool(np.maximum, -np.inf)

@@ -59,3 +59,103 @@ def make_ao_field(quantize: bool = False, seed: int = 1):
     phys = (q.astype(np.float32) * scale.astype(np.float32)[:, None, None]
             + lo.astype(np.float32)[:, None, None])
     return q, phys, tuple(float(s) for s in scale), tuple(float(v) for v in lo)
+
+
+# the tiled march's inputs: a (Z, X, Y) volume cut into 2 x 2 tiles of 16
+TZ, TXY, TSN, TTN = 16, 32, 20, 18
+TILE = 16
+
+
+def make_tiled_inputs(store: str, seed: int = 0):
+    """Inputs of the tiled march: a field rising along z with a bump in
+    the slice plane, and noise; a brick pyramid (bricks of 8, the march's axis order) made
+    from it with two cuts: no brick of the lower z layer reaches the
+    isovalue (the slices there have no occupied tile: Fm1 resets just
+    before the first crossings), and the x-tile 1 / y-tile 0 bricks of the
+    upper layer never do (taps of a culled tile beside occupied ones); one
+    slice is skipped by its do-flag.  Returns
+    (vol, meta, s_grid, t_grid, scale, offset, brick_max_p, iso)."""
+    from isosurfacesuperresolution_tpu_torch.volume.grid import (
+        compute_brick_minmax)
+    rng = np.random.RandomState(seed)
+    z, x, y = np.meshgrid(np.arange(TZ), np.arange(TXY), np.arange(TXY),
+                          indexing="ij")
+    vol = (0.1 * z + 0.2 * np.exp(-((x - 10) ** 2 + (y - 20) ** 2) / 60.0)
+           + 0.03 * rng.rand(TZ, TXY, TXY)).astype(np.float32)
+    scale, offset = 1.0, 0.0
+    phys = vol
+    if store == "uint8":
+        scale, offset = float(vol.max()) / 255.0, 0.01
+        vol = np.clip(np.round((vol - offset) / scale), 0, 255).astype(
+            np.uint8)
+        phys = vol.astype(np.float32) * np.float32(scale) + np.float32(
+            offset)
+    _, bmax = compute_brick_minmax(np.transpose(phys, (1, 2, 0)), 8)
+    bmax[:, :, 0] = 0.0
+    bmax[2:4, 0:2, 1] = 0.0
+    K = 2 * TZ
+    zc = (np.arange(K) + 0.5) / 2.0
+    lam = 0.8 + 0.005 * np.arange(K)
+    zf = np.clip(np.floor(zc - 0.5), 0, TZ - 2)
+    fz = np.clip(zc - 0.5 - zf, 0.0, 1.0)
+    flag = np.ones(K)
+    flag[24] = 0.0                                 # a culled slice
+    iso = 0.9
+    meta = np.stack([zc, lam, zf, fz, flag, np.full(K, iso),
+                     np.full(K, 16.0), np.full(K, 15.5)], 1).astype(np.float32)
+    s_grid = np.linspace(0.5, TXY - 0.5, TSN).astype(np.float32)
+    t_grid = np.linspace(0.3, TXY - 0.3, TTN).astype(np.float32)
+    return vol, meta, s_grid, t_grid, scale, offset, bmax, iso
+
+
+def make_tiled_ao_field(fd: int = 1, quantize: bool = False, seed: int = 2):
+    """A smooth (Z', 4, X', Y') SH-like field for the tiled inputs, at
+    1/fd of their resolution: float32, or uint8 with per-channel scale
+    and offset (4-tuples); returns (field, scale, offset)."""
+    rng = np.random.RandomState(seed)
+    n, m = TZ // fd, TXY // fd
+    z, x, y = np.meshgrid(np.arange(n) * fd, np.arange(m) * fd,
+                          np.arange(m) * fd, indexing="ij")
+    chans = [0.2 + 0.01 * x + 0.02 * z, 0.1 * np.sin(0.4 * y),
+             0.05 * np.cos(0.3 * x + 0.2 * z), -0.04 + 0.005 * y]
+    field = (np.stack(chans, 1) + 0.01 * rng.rand(n, 4, m, m)).astype(
+        np.float32)
+    if not quantize:
+        return field, 1.0, 0.0
+    lo = field.min(axis=(0, 2, 3))
+    sc = np.maximum((field.max(axis=(0, 2, 3)) - lo) / 255.0, 1e-8)
+    q = np.clip(np.round((field - lo[:, None, None]) / sc[:, None, None]),
+                0, 255).astype(np.uint8)
+    return q, tuple(float(v) for v in sc), tuple(float(v) for v in lo)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 bound of whole renders against the JAX package
+# ---------------------------------------------------------------------------
+
+BF16_TOL = 5e-3    # one bf16 rounding flip of a gradient operand
+# Pixels of a 32x24 render of blobs_volume(32, num_blobs=5) at iso 0.5
+# where the two packages round one bf16 weight differently, by camera eye.
+# At (0.3, 0.9, -1.5): XLA's CPU backend fuses the host geometry's
+# multiply-adds (t_grid, then y = eye_t + lam * (t - eye_t)) into FMAs and
+# PyTorch rounds each product and sum, so slice 33's y position at t = 26
+# is 20.9433651 in JAX and 20.9433575 here (4 ulps); its tap weight
+# 0.55663 lies on a bf16 rounding boundary (0.556640625) and rounds to
+# 0.5547 in JAX and 0.5586 here.  That slice's F moves frac, g_z and,
+# through a neighbour's Fm1, g_t of three intermediate pixels, and the
+# normal of output pixel (9, 14) by 7.5e-3, on the scan, the flat kernel
+# and the tiled kernel alike.  (JAX's own kernel and scan differ by up to
+# 1.9e-2 there, at 8 pixels above 5e-3.)
+BF16_FLIP_PIXELS = {(0.3, 0.9, -1.5): ((9, 14),)}
+BF16_FLIP_TOL = 1e-2
+
+
+def assert_bf16_render_close(got, ref, both, eye) -> None:
+    """|got - ref| < BF16_TOL on every common hit of two (H, W, C)
+    renders, except at the named flip pixels of camera ``eye``, where the
+    flip itself is allowed (< BF16_FLIP_TOL)."""
+    d = np.abs(np.asarray(got) - np.asarray(ref)) * both[..., None]
+    for i, j in BF16_FLIP_PIXELS.get(tuple(eye), ()):
+        assert d[i, j].max() < BF16_FLIP_TOL, (i, j, d[i, j])
+        d[i, j] = 0.0
+    assert d.max() < BF16_TOL, d.reshape(-1, d.shape[-1]).max(0)

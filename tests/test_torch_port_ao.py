@@ -26,7 +26,9 @@ from isosurfacesuperresolution_tpu_torch.render.sweep import (
     ao_field_zcxy, render_gbuffer_sweep)
 from isosurfacesuperresolution_tpu_torch.volume import analytic
 
-from _torch_port_inputs import CASES, SN, TN, make_ao_field, make_inputs
+from _torch_port_inputs import (BF16_TOL, CASES, SN, TN,
+                                assert_bf16_render_close, make_ao_field,
+                                make_inputs)
 
 
 def test_fibonacci_sphere_and_shift_volume_match_jax():
@@ -202,13 +204,15 @@ def baked_blobs():
     return {"float32": jgrid, "uint8": u8}, ported
 
 
+@pytest.mark.parametrize("renderer", ["sweep", "sweep_pallas"])
 @pytest.mark.parametrize("field", ["float32", "uint8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("eye,up", EYES)
-def test_sweep_with_baked_ao_matches_jax(baked_blobs, eye, up, dtype, field):
+def test_sweep_with_baked_ao_matches_jax(baked_blobs, eye, up, dtype, field,
+                                         renderer):
     jgrids, grids = baked_blobs
     kw = dict(width=32, height=24, isovalue=0.5, ao_samples=64,
-              ao_mode="volume", sweep_dtype=dtype)
+              ao_mode="volume", sweep_dtype=dtype, renderer=renderer)
     eye_prev = tuple(e + d for e, d in zip(eye, (0.03, -0.02, 0.02)))
     jcams = (JCameraParams.create(eye, up=up),
              JCameraParams.create(eye_prev, up=up))
@@ -217,27 +221,29 @@ def test_sweep_with_baked_ao_matches_jax(baked_blobs, eye, up, dtype, field):
         grids[field], CameraParams.create(eye, up=up),
         CameraParams.create(eye_prev, up=up), RenderConfig(**kw)).numpy()
     assert sweep_march.march.ao_launches == before     # plain on the CPU
-    # bf16: the port's march rounds like the Pallas kernel (interpret
-    # mode); float32: held against the scan, which samples AO in float32
-    renderer = "sweep_pallas" if dtype == "bfloat16" else "sweep"
-    ref = np.asarray(j_render(jgrids[field], *jcams,
-                              JRenderConfig(renderer=renderer, **kw)))
+    # each renderer against JAX's: the scan (AO sampled in float32, the
+    # dequant after the lerp) and the kernel (interpret mode)
+    ref = np.asarray(j_render(jgrids[field], *jcams, JRenderConfig(**kw)))
     assert got.shape == ref.shape == (24, 32, 12)
     assert np.sum(ref[..., 3] != got[..., 3]) <= 1
     both = (ref[..., 3] > 0.5) & (got[..., 3] > 0.5)
     assert both.sum() > 20
     ao_ref, ao_got = ref[..., 10][both], got[..., 10][both]
     assert ao_ref.min() < 0.95                # the field occludes some hits
-    # AO = clip(1 - mean - 2/3 g.n): the SH capture agrees to 1e-6 and the
-    # uint8 field dequantizes after the z-lerp in the scan, before it here
-    # (float32 rounding, 1e-6), so AO follows the normal: 1e-4 in float32
-    # (the sweep test's bound).  In bf16 a rounding flip moves a gradient
-    # by 2^-8 relative: AO measured 4e-4, the normals 7.5e-3 at the first
-    # camera, so 5e-3 on AO and 1e-2 on the other channels
-    tol_ao, tol = (1e-4, 1e-4) if dtype == "float32" else (5e-3, 1e-2)
-    assert np.abs(ao_got - ao_ref).max() < tol_ao
-    d = np.abs(got - ref)[both]
-    assert d.max() < tol, d.max(0)
+    # AO = clip(1 - mean - 2/3 g.n): the SH capture agrees to 1e-6 (the
+    # flat kernel dequantizes a uint8 field before the z-lerp, as JAX's
+    # kernel path does: float32 rounding, 1e-6), so AO follows the
+    # normal: 1e-4 in float32 (the sweep test's bound).  In bf16 a
+    # rounding flip moves a gradient by 2^-8 relative: 5e-3 on every
+    # channel (AO measured 4e-4), but at the one flip pixel of the first
+    # camera that `assert_bf16_render_close` names (its normal 7.5e-3)
+    if dtype == "float32":
+        assert np.abs(ao_got - ao_ref).max() < 1e-4
+        d = np.abs(got - ref)[both]
+        assert d.max() < 1e-4, d.max(0)
+    else:
+        assert np.abs(ao_got - ao_ref).max() < BF16_TOL
+        assert_bf16_render_close(got, ref, both, eye)
 
 
 def test_ao_mode_rules():
@@ -252,10 +258,27 @@ def test_ao_mode_rules():
     baked = P.attach_baked_ao(grid, 0.5, 0.2, num_dirs=2, num_steps=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         render_gbuffer_sweep(baked, cam, cam, cfg.replace(ao_mode="ray"))
+    # a coarse field renders, as in JAX (flat path: upsampled first; the
+    # scan and the kernel's plain version)
     coarse = P.attach_baked_ao(grid, 0.5, 0.2, num_dirs=2, num_steps=2,
-                               downsample=2, keep_coarse=True)
-    with pytest.raises(NotImplementedError, match="ao_downsample"):
-        render_gbuffer_sweep(coarse, cam, cam, cfg)
+                               downsample=2, keep_coarse=True,
+                               out_dtype="uint8")
+    jgrid = dataclasses.replace(
+        j_analytic.sphere_volume(16),
+        ao_sh=jnp.asarray(coarse.ao_sh.numpy()), ao_scale=coarse.ao_scale,
+        ao_offset=coarse.ao_offset, ao_downsample=2)
+    jcam = JCameraParams.create((0.3, 0.9, -1.5))
+    for renderer in ("sweep", "sweep_pallas"):
+        rcfg = cfg.replace(renderer=renderer)
+        got = render_gbuffer_sweep(coarse, cam, cam, rcfg).numpy()
+        ref = np.asarray(j_render(jgrid, jcam, jcam, JRenderConfig(
+            width=16, height=12, isovalue=0.5, ao_samples=8,
+            renderer=renderer)))
+        np.testing.assert_array_equal(got[..., 3], ref[..., 3])
+        assert (got[..., 10][got[..., 3] > 0.5] < 1).any()
+        # float32 sums and the upsample (F.interpolate against
+        # jax.image.resize): the sweep test's 1e-4
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
     # ao_samples = 0 ignores a baked field; "auto" uses it
     plain = render_gbuffer_sweep(baked, cam, cam, cfg.replace(ao_samples=0))
     assert (plain[..., 10] == 1).all()

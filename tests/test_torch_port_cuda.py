@@ -11,8 +11,11 @@ import torch
 
 from isosurfacesuperresolution_tpu_torch.ops import phase_conv as pc
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
+from isosurfacesuperresolution_tpu_torch.render import sweep_tiled as PT
 
-from _torch_port_inputs import CASES, SN, TN, make_ao_field, make_inputs
+from _torch_port_inputs import (CASES, SN, TILE, TN, TSN, TTN, make_ao_field,
+                                make_inputs, make_tiled_ao_field,
+                                make_tiled_inputs)
 
 
 def _need_card():
@@ -98,3 +101,67 @@ def test_phase_conv_kernel_matches_plain(relu, out, shape):
     tol = 2e-5 + (2.0 ** -7 * want.abs() if out == "bfloat16" else 0.0)
     assert bool(((got - want).abs() <= tol).all()), \
         float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store,mm", CASES)
+def test_march_tiled_kernel_matches_plain(store, mm):
+    _need_card()
+    vol, meta, sg, tg, scale, offset, bmax, iso = make_tiled_inputs(store)
+    args = [torch.from_numpy(a).cuda() for a in (vol, meta, sg, tg)]
+    bm = torch.from_numpy(bmax).cuda()
+    kw = dict(tile=TILE, dtype=getattr(torch, mm), scale=scale,
+              offset=offset)
+    before = PT.march_tiled_kernel.launches
+    got = PT.march_tiled(*args, TSN, TTN, bm, 8, iso, **kw)
+    torch.cuda.synchronize()
+    assert PT.march_tiled_kernel.launches == before + 1
+    want = PT.march_tiled_plain(*[a.cpu() for a in args], TSN, TTN,
+                                bm.cpu(), 8, iso, **kw)
+    # same operands rounded at the same points; float32 sums of two taps
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    assert (want[0].numpy() >= 0).mean() > 0.5
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+# (field storage, field downsample, resample type), as in the CPU tests
+AO_CASES = [("float32", 1, "float32"), ("bfloat16", 1, "bfloat16"),
+            ("uint8", 1, "float32"), ("uint8", 1, "bfloat16"),
+            ("uint8", 2, "bfloat16"), ("float32", 2, "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,fd,mm", AO_CASES)
+def test_ao_capture_tiled_kernel_matches_plain(field, fd, mm):
+    _need_card()
+    vol, meta, sg, tg, scale, offset, bmax, iso = make_tiled_inputs("uint8")
+    cpu = [torch.from_numpy(a) for a in (vol, meta, sg, tg)]
+    m_hit = PT.march_tiled_plain(*cpu, TSN, TTN, torch.from_numpy(bmax), 8,
+                                 iso, tile=TILE, scale=scale,
+                                 offset=offset)[0]
+    ao, a_scale, a_offset = make_tiled_ao_field(fd, field == "uint8")
+    # the field as a permuted (Z', 4, X', Y') view of an (X', Y', Z', 4)
+    # array, as the renderer hands it over: the kernel reads strides
+    xyzc = torch.from_numpy(np.ascontiguousarray(ao.transpose(2, 3, 0, 1)))
+    if field == "bfloat16":
+        xyzc = xyzc.to(torch.bfloat16)
+    view = xyzc.permute(2, 3, 0, 1)
+    kw = dict(tile=8, dtype=getattr(torch, mm), ao_scale=a_scale,
+              ao_offset=a_offset, field_downsample=fd)
+    before = PT.ao_capture_tiled_kernel.launches
+    got = PT.ao_capture_tiled(view.cuda(), *[a.cuda() for a in cpu[1:]],
+                              TSN, TTN, m_hit.cuda(),
+                              torch.from_numpy(bmax).cuda(), 8, iso, **kw)
+    torch.cuda.synchronize()
+    assert PT.ao_capture_tiled_kernel.launches == before + 1
+    want = PT.ao_capture_tiled_plain(view, *cpu[1:], TSN, TTN, m_hit,
+                                     torch.from_numpy(bmax), 8, iso, **kw)
+    hit = m_hit.numpy() >= 0
+    got = got.cpu().numpy()
+    assert (got[:, ~hit] == 0).all() and (want.numpy()[:, hit] != 0).all()
+    # the same per-pair sums in the same order: float32 within rounding
+    # (1e-6); bf16 within one bf16 step of a term (2^-8 relative)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-6,
+                               rtol=0 if mm == "float32" else 2.0 ** -8)

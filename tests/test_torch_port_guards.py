@@ -18,6 +18,7 @@ from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import LoadedModel
 from isosurfacesuperresolution_tpu_torch.models.generators import EnhanceNet
 from isosurfacesuperresolution_tpu_torch.ops import phase_conv
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
+from isosurfacesuperresolution_tpu_torch.render import sweep_tiled
 from isosurfacesuperresolution_tpu_torch.volume import analytic
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,7 +39,7 @@ print(bad)
 """
 
 NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
-               "render.ao_sweep")
+               "render.ao_sweep", "render.sweep_tiled", "volume.grid")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -121,6 +122,52 @@ def _no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(sweep_march, "march_plain", plain)
     monkeypatch.setattr(phase_conv, "_FN", None)
     monkeypatch.setattr(phase_conv, "phase_conv_plain", plain)
+    monkeypatch.setattr(sweep_tiled, "_FNS", {})
+    monkeypatch.setattr(sweep_tiled, "march_tiled_plain", plain)
+    monkeypatch.setattr(sweep_tiled, "ao_capture_tiled_plain", plain)
+
+
+def _tiled_args(device):
+    """Fake tensors of a tiled march call: (Z, X, Y) volume, table,
+    grids and the (bx, by, bz) brick max."""
+    return [torch.empty((4, 32, 16), device=device),
+            torch.empty((8, 8), device=device),
+            torch.empty(7, device=device), torch.empty(3, device=device),
+            7, 3, torch.empty((4, 2, 1), device=device), 8, 0.5]
+
+
+def test_march_tiled_raises_for_cuda_request_without_library(monkeypatch,
+                                                             tmp_path):
+    _no_library(monkeypatch, tmp_path)
+    before = sweep_tiled.march_tiled_kernel.launches
+    with FakeTensorMode():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            sweep_tiled.march_tiled(*_tiled_args("cuda"), tile=16)
+    assert sweep_tiled.march_tiled_kernel.launches == before
+
+
+def test_ao_capture_tiled_raises_for_cuda_request_without_library(
+        monkeypatch, tmp_path):
+    _no_library(monkeypatch, tmp_path)
+    before = sweep_tiled.ao_capture_tiled_kernel.launches
+    with FakeTensorMode():
+        field = torch.empty((2, 4, 16, 8), dtype=torch.uint8, device="cuda")
+        _, meta, sg, tg, Sn, Tn, bmax, b, iso = _tiled_args("cuda")
+        m_hit = torch.empty((Sn, Tn), device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            sweep_tiled.ao_capture_tiled(field, meta, sg, tg, Sn, Tn, m_hit,
+                                         bmax, b, iso, field_downsample=2)
+    assert sweep_tiled.ao_capture_tiled_kernel.launches == before
+
+
+def test_tiled_kernels_refuse_other_devices():
+    args = _tiled_args("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sweep_tiled.march_tiled(*args)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sweep_tiled.ao_capture_tiled(
+            torch.empty((2, 4, 16, 8), device="meta"), *args[1:6],
+            torch.empty((7, 3), device="meta"), *args[6:])
 
 
 def test_march_ao_raises_for_cuda_request_without_library(monkeypatch,
