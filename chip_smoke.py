@@ -41,11 +41,27 @@ seconds; any failure ends the run with a non-zero exit code:
    (artifacts/run00015, iso 0.36, no AO as in its config) through
    `InferencePipeline` (planar "auto"), 480x270 -> 1920x1080, 20 frames;
 12. card vs CPU on three chained small tiled frames (48^3 blobs,
-   sweep_tile 16, a coarse uint8 AO field).
+   sweep_tile 16, a coarse uint8 AO field);
+13. the packed volumes of `bench_volumes.py --sparse`
+   (`SparseBrickGrid.from_brick_grid(grid, tolerance=1e-3)`): the 512^3
+   blobs, the same with its full-res bf16 field (`--sparse --ao`), and
+   `ejecta_volume(512)` stored uint8 (made on the host); seconds, atlas
+   sizes, slot occupancy and storage against dense logged;
+14. the packed march (B3) and the packed AO capture (B4p) vs their plain
+   versions at 512^3 (the camera of phase 9), with stated bounds, and
+   their times; B3 on the packed uint8 grid against B2 on the dense one,
+   bit for bit;
+15. packed 512^3 G-buffer frames, 20 each: blobs, blobs with its packed
+   AO field, ejecta;
+16. the main path on the packed blobs: run00015 through
+   `InferencePipeline`, 20 frames, and the device time of copies per
+   frame beside the dense grid's (`torch.profiler`, 5 frames each);
+17. card vs CPU on three chained small packed frames (48^3 blobs, tiles
+   of 16, a packed full-res AO field).
 
-In phases 4, 6, 7, 10 and 11 the launch counts are zeroed just before
-each run and read just after it, and frames 3 onwards must make no host
-sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line of kernel numbers,
+In phases 4, 6, 7, 10, 11, 15 and 16 the launch counts are zeroed just
+before each run and read just after it, and frames 3 onwards must make no
+host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line of kernel numbers,
 the card line, and last the device line.  Float32 matmuls and
 convolutions run without TF32 throughout
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
@@ -81,6 +97,10 @@ TILED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
                   "sweep_pallas_tiled.py:54")
 AO_TILED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
                      "sweep_pallas_tiled.py:346")
+PACKED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
+                   "sweep_pallas_tiled.py:705")
+AO_PACKED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
+                      "sweep_pallas_tiled.py:631")
 # bounds of the march comparison: both round the same operands at the same
 # points; float32 sums may differ in the last place, which can move a
 # crossing where F is within rounding of the isovalue
@@ -186,31 +206,40 @@ def phase_bound_ms(H: int, W: int, out_elem: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def tiled_bound_ms(args: dict, outs, tables) -> tuple:
+def tiled_bound_ms(args: dict, outs, tables, shape, elem: int,
+                   slots=None) -> tuple:
     """Least time for the tiled march on THIS data, counted as
     `march_bound_ms` counts the flat march.  ``tables`` is
-    `sweep_tiled.march_tables` of ``args``.  Bytes: the volume planes that
+    `sweep_tiled.march_tables` of ``args``, ``shape`` the (Z, X, Y) volume
+    and ``elem`` its bytes per value.  Bytes: the volume planes that
     working slices read, only inside their occupied tiles (each (plane,
-    tile) once), the tile table and grids, the five outputs.  Operations:
-    10 float32 flops per tap in an occupied tile on every working slice
-    up to the pixel's hit (the flat march's 40 per four-tap sample: z-lerp,
-    dequant, weight, product, and the sums), and at each hit four
-    neighbour samples (4 x 40)."""
+    tile) once; packed, with ``slots``: each slot entry so read, 4 bytes,
+    and each distinct atlas tile it names), the tile table and grids, the
+    five outputs.  Operations: 10 float32 flops per tap in an occupied
+    tile on every working slice up to the pixel's hit (the flat march's 40
+    per four-tap sample: z-lerp, dequant, weight, product, and the sums),
+    and at each hit four neighbour samples (4 x 40)."""
     import torch
-    vol, meta, Sn, Tn = args["vol_zxy"], args["meta"], args["Sn"], args["Tn"]
+    meta, Sn, Tn = args["meta"], args["Sn"], args["Tn"]
     TX, TY, occ, counts = tables
-    Z, X, Y = vol.shape
+    Z, X, Y = shape
     K, NTX, NTY = occ.shape
+    dev = meta.device
     occ_f = occ.reshape(K, -1).to(torch.float32)
     zf = meta[:, 2].long()
-    planes = torch.zeros((Z, NTX * NTY), device=vol.device)
+    planes = torch.zeros((Z, NTX * NTY), device=dev)
     planes.index_add_(0, zf, occ_f).index_add_(0, zf + 1, occ_f)
-    nbytes = (float((planes > 0).sum()) * TX * TY * vol.element_size()
-              + meta.numel() * 4 + (Sn + Tn) * 4
+    read = planes > 0
+    if slots is None:
+        tile_bytes = float(read.sum()) * TX * TY * elem
+    else:
+        tile_bytes = (float(read.sum()) * 4 + TX * TY * elem * float(
+            torch.unique(slots.reshape(Z, -1)[read]).numel()))
+    nbytes = (tile_bytes + meta.numel() * 4 + (Sn + Tn) * 4
               + args["table"].numel() * 4 + 5 * Sn * Tn * 4)
     m_hit = outs[0]
     live_until = torch.where(m_hit >= 0, m_hit, float(K))
-    taps = torch.zeros((), dtype=torch.float64, device=vol.device)
+    taps = torch.zeros((), dtype=torch.float64, device=dev)
 
     def tap_tiles(pos, n, t, nt):
         """(len(pos), nt) count of a pixel's valid taps in each tile"""
@@ -238,19 +267,22 @@ def tiled_bound_ms(args: dict, outs, tables) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ao_tiled_bound_ms(field, meta, s_grid, t_grid, m_hit, fd, tables,
-                      table) -> tuple:
-    """Least time for the tiled AO capture on THIS data.  ``tables`` is
-    `sweep_tiled.ao_tables` of these inputs, ``table`` the kernel's tile
-    table.  Bytes: the field values sampled at the hits (2 planes x 4
-    channels at each of a hit's taps in a kept tile), m_hit read, sh
-    written, the table.  Operations: 4 channels x 10 flops (z-lerp,
-    dequant, weight, product, sum, as the marches count) per such tap."""
+def ao_tiled_bound_ms(field_shape, elem: int, meta, s_grid, t_grid, m_hit,
+                      fd, tables, table_bytes: float) -> tuple:
+    """Least time for the tiled AO capture (or the packed one) on THIS
+    data.  ``tables`` is `sweep_tiled.ao_tables` of these inputs (packed:
+    the tile sizes and kept pairs of `ao_packed_tables`, and the meta),
+    ``table_bytes`` what the kernel reads of its tile table (packed: of
+    its slot table).  Bytes: the field values sampled at the hits (2
+    planes x 4 channels of ``elem`` bytes at each of a hit's taps in a
+    kept tile), m_hit read, sh written, the table.  Operations: 4
+    channels x 10 flops (z-lerp, dequant, weight, product, sum, as the
+    marches count) per such tap."""
     import torch
     Sn, Tn = m_hit.shape
     TX, TY, occ, _, meta2 = tables
     K = meta.shape[0]
-    _, _, X2, Y2 = field.shape
+    _, _, X2, Y2 = field_shape
     NTY = Y2 // TY
     hit = m_hit >= 0
     k = torch.clamp(m_hit.long(), 0, K - 1)
@@ -267,8 +299,8 @@ def ao_tiled_bound_ms(field, meta, s_grid, t_grid, m_hit, fd, tables,
             pid = (torch.clamp(jx, 0, X2 - 1) // TX * NTY
                    + torch.clamp(jy, 0, Y2 - 1) // TY)
             n_taps += float((ok & occ_f[k, pid]).sum())
-    nbytes = (n_taps * 2 * 4 * field.element_size() + Sn * Tn * 4
-              + 4 * Sn * Tn * 4 + table.numel() * 4 + meta.numel() * 4)
+    nbytes = (n_taps * 2 * 4 * elem + Sn * Tn * 4 + 4 * Sn * Tn * 4
+              + table_bytes + meta.numel() * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_taps * 4 * 10 / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -335,11 +367,14 @@ def check_card_vs_cpu(tag: str, outs: dict, with_ao: bool) -> None:
         raise RuntimeError(f"[{tag}] the AO channel is 1 on every hit")
 
 
+FRAME_MS = {}     # ms/frame of each `drive` run, by tag
+
+
 def drive(frame_fn, n_frames: int, tag: str, counters: dict):
     """Run ``frame_fn(i)`` for i < n_frames with the launch counts zeroed
     just before and read just after; frames 3 onwards must make no host
-    sync.  Logs the times and peak memory; returns (last output,
-    launches)."""
+    sync.  Logs the times and peak memory (ms/frame kept in FRAME_MS);
+    returns (last output, launches)."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -361,6 +396,7 @@ def drive(frame_fn, n_frames: int, tag: str, counters: dict):
     syncs = [str(w.message) for w in caught
              if "called a synchronizing" in str(w.message)]
     ms_frame = events[2].elapsed_time(events[n_frames]) / (n_frames - 2)
+    FRAME_MS[tag] = ms_frame
     first_ms = events[0].elapsed_time(events[1])
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{tag}] {ms_frame:.2f} ms/frame over frames 3-{n_frames} (first "
@@ -371,6 +407,29 @@ def drive(frame_fn, n_frames: int, tag: str, counters: dict):
         raise RuntimeError(f"[{tag}] a frame waited for the card: "
                            f"{syncs[0]}")
     return out, launches
+
+
+def copy_ms(frame_fn, n_frames: int = 5) -> tuple:
+    """(device ms per frame of copies, of all kernels) over ``n_frames``
+    frames under `torch.profiler`, after two warm-up frames: copies are
+    the kernels and transfers whose names say copy or memcpy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(2):
+        frame_fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n_frames):
+            frame_fn(2 + i)
+        torch.cuda.synchronize()
+    busy = copies = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.self_device_time_total / 1e3
+            if "copy" in e.key.lower():
+                copies += e.self_device_time_total / 1e3
+    return copies / n_frames, busy / n_frames
 
 
 def check_rgb(rgb, mask, shape) -> None:
@@ -439,9 +498,11 @@ def main() -> int:
     from isosurfacesuperresolution_tpu_torch.render.params import (
         RenderParams)
     from isosurfacesuperresolution_tpu_torch.render.sweep import (
-        ao_tile_table, field_zcxy, march_inputs, plan_sweep,
+        ao_tile_table, field_zcxy, march_inputs, packed_inputs, plan_sweep,
         render_gbuffer_sweep, tiled_inputs, use_tiled)
     from isosurfacesuperresolution_tpu_torch.volume import analytic
+    from isosurfacesuperresolution_tpu_torch.volume.packed import (
+        SWEEP_PERMS, SparseBrickGrid)
 
     march = sweep_march.march
     counters = {"sweep_march": (march, "launches"),
@@ -450,7 +511,11 @@ def main() -> int:
                 "sweep_march_tiled": (sweep_tiled.march_tiled_kernel,
                                       "launches"),
                 "ao_capture_tiled": (sweep_tiled.ao_capture_tiled_kernel,
-                                     "launches")}
+                                     "launches"),
+                "sweep_march_packed": (sweep_tiled.march_packed_kernel,
+                                       "launches"),
+                "ao_capture_packed": (sweep_tiled.ao_capture_packed_kernel,
+                                      "launches")}
     frame_cfg = RenderConfig(width=480, height=270, isovalue=0.5,
                              ao_samples=0, renderer="sweep_pallas",
                              sweep_oversample=1.25, sweep_dtype="bfloat16")
@@ -729,7 +794,9 @@ def main() -> int:
         wrapper_ms = time_cuda(lambda: sweep_tiled.march_tiled(**args), 7)
         plain_ms = time_cuda(lambda: sweep_tiled.march_tiled_plain(**plain),
                              3)
-        bound, bound_by = tiled_bound_ms(args, got, tables)
+        bound, bound_by = tiled_bound_ms(args, got, tables,
+                                         args["vol_zxy"].shape,
+                                         args["vol_zxy"].element_size())
         log(f"[B2] kernel {ms:.3f} ms (median of 7; the wrapper, its tile "
             f"table kept with the grid, {wrapper_ms:.3f} ms), plain "
             f"{plain_ms:.1f} ms (median of 3), bound {bound:.4f} ms by "
@@ -780,8 +847,9 @@ def main() -> int:
             plain_ms = time_cuda(
                 lambda: sweep_tiled.ao_capture_tiled_plain(**ao_args), 3)
             bound, bound_by = ao_tiled_bound_ms(
-                field, args["meta"], args["s_grid"], args["t_grid"], m_hit,
-                g.ao_downsample, tables, table)
+                field.shape, field.element_size(), args["meta"],
+                args["s_grid"], args["t_grid"], m_hit, g.ao_downsample,
+                tables, table.numel() * 4)
             log(f"[B4 {tag}] kernel {ms:.3f} ms (median of 7; the wrapper, "
                 f"its tile table kept with the grid, {wrapper_ms:.3f} ms), "
                 f"plain {plain_ms:.1f} ms (median of 3), bound {bound:.4f} "
@@ -790,7 +858,8 @@ def main() -> int:
                 "max_abs_err": float(d.max()), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None}
-        del args, got, want, sh, sh_want, d
+        b2_dense = got
+        del args, want, sh, sh_want, d
 
     with phase("10 512^3 G-buffer frames (bench_volumes.py), 20 each"):
         for tag, g, rcfg, ao in (
@@ -839,7 +908,7 @@ def main() -> int:
                   (1080, 1920, 3))
         expect(launches, {"sweep_march_tiled": 20}, "512^3 planar f32")
         add(launches)
-        del pipe, grid512, grid512_ao, grid512_c
+        del pipe, grid512_c
 
     with phase("12 small tiled frames: card vs CPU"):
         tiny = RenderConfig(width=64, height=48, isovalue=0.36,
@@ -871,8 +940,224 @@ def main() -> int:
                           True)
         lm15.model.to("cuda")
 
-    log(f"launches over the main-path runs of phases 4, 6, 7, 10 and 11: "
-        f"{path_launches}")
+    with phase("13 packed 512^3 volumes (bench_volumes.py --sparse)"):
+        def pack(tag, g):
+            torch.cuda.synchronize()
+            t = time.time()
+            sg = SparseBrickGrid.from_brick_grid(g, tolerance=1e-3)
+            torch.cuda.synchronize()
+            secs = time.time() - t
+            dense = sg.dense_bytes()
+            vol_bytes = sum(pa.atlas.numel() * pa.atlas.element_size()
+                            + pa.slots.numel() * 4 for pa in sg.per_axis)
+            log(f"[{tag}] packed in {secs:.2f} s: atlases "
+                f"{[pa.atlas.shape[0] for pa in sg.per_axis]} tiles of "
+                f"{sg.per_axis[0].tile_shape} {sg.per_axis[0].atlas.dtype}, "
+                f"slot occupancy per axis "
+                f"{[round(float((pa.slots > 0).float().mean()), 4) for pa in sg.per_axis]}"
+                f"; density storage {vol_bytes / dense:.3f}x dense "
+                f"({vol_bytes / 1e6:.1f} MB of {dense / 1e6:.1f} MB)")
+            if sg.ao_per_axis is not None:
+                log(f"[{tag}] AO atlases "
+                    f"{[pa.atlas.shape[0] for pa in sg.ao_per_axis]} tiles "
+                    f"of {sg.ao_per_axis[0].tile_shape} "
+                    f"{sg.ao_per_axis[0].atlas.dtype}, slot occupancy "
+                    f"{[round(float((pa.slots > 0).float().mean()), 4) for pa in sg.ao_per_axis]}")
+            log(f"[{tag}] storage_bytes() / dense_bytes() = "
+                f"{sg.storage_bytes() / dense:.3f} "
+                f"({sg.storage_bytes() / 1e6:.1f} MB)")
+            return sg
+
+        packed512 = pack("blobs 512^3 uint8", grid512)
+        packed512_ao = pack("blobs 512^3 uint8 + full-res bf16 AO",
+                            grid512_ao)
+        del grid512_ao
+        t = time.time()
+        ejecta = analytic.ejecta_volume(512, store_dtype="uint8",
+                                        device="cuda")
+        torch.cuda.synchronize()
+        log(f"ejecta_volume(512) stored uint8 (numpy on the host, the brick "
+            f"pyramid included): {time.time() - t:.1f} s; occupied bricks at "
+            f"iso 0.36: "
+            f"{float((ejecta.brick_max >= 0.36).float().mean()):.3f}")
+        packed_ej = pack("ejecta 512^3 uint8", ejecta)
+        del ejecta
+
+    with phase("14 packed kernels vs plain at 512^3"):
+        plan = plan_sweep(packed512, cam_at(0.0), cfg512, rp512)
+        args = packed_inputs(packed512, plan, cfg512, rp512)
+        pa = args["packed_axis"]
+        plain = {k: v for k, v in args.items() if k != "table"}
+        got = sweep_tiled.march_packed(**args)
+        torch.cuda.synchronize()
+        want = sweep_tiled.march_packed_plain(**plain)
+        torch.cuda.synchronize()
+        err = check_march("B3 bf16 uint8-atlas", got, want)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, b2_dense))
+        log(f"[B3] the packed uint8 grid against B2 on the dense grid: "
+            f"{'identical' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError("B3 on the lossless packing differs from B2 "
+                               "on the dense grid")
+        tables = sweep_tiled.march_tables(
+            pa.shape, args["meta"], args["brick_max_p"], args["brick_size"],
+            args["iso"], max(pa.tile_shape))
+        if tables[:2] != pa.tile_shape:
+            raise RuntimeError("the march tables' tiles are not the atlas's")
+        atlas = sweep_tiled.kernel_atlas(pa, torch.uint8)
+        kargs = (atlas, pa.slots, args["meta"], args["s_grid"],
+                 args["t_grid"], args["Sn"], args["Tn"], args["table"],
+                 args["iso"], args["dtype"], args["scale"], args["offset"])
+        ms = time_cuda(lambda: sweep_tiled.march_packed_kernel(*kargs), 7)
+        wrapper_ms = time_cuda(lambda: sweep_tiled.march_packed(**args), 7)
+        plain_ms = time_cuda(lambda: sweep_tiled.march_packed_plain(**plain),
+                             3)
+        bound, bound_by = tiled_bound_ms(args, got, tables, pa.shape,
+                                         atlas.element_size(), pa.slots)
+        log(f"[B3] kernel {ms:.3f} ms (median of 7; the wrapper, its tile "
+            f"table kept with the grid, {wrapper_ms:.3f} ms), plain "
+            f"{plain_ms:.1f} ms (median of 3), bound {bound:.4f} ms by "
+            f"{bound_by}")
+        rows["packed"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": None}
+        m_hit = got[0]
+        pao = packed512_ao.ao_per_axis[SWEEP_PERMS.index(plan.perm)]
+        ao_args = dict(packed_ao=pao, meta=args["meta"],
+                       s_grid=args["s_grid"], t_grid=args["t_grid"],
+                       Sn=args["Sn"], Tn=args["Tn"], m_hit=m_hit,
+                       dtype=args["dtype"])
+        sh = sweep_tiled.ao_capture_packed(**ao_args)
+        torch.cuda.synchronize()
+        sh_want = sweep_tiled.ao_capture_packed_plain(**ao_args)
+        torch.cuda.synchronize()
+        hit = m_hit >= 0
+        d = (sh - sh_want).abs()
+        excess = float((d - MAX_SH_REL * sh_want.abs()).max())
+        ok = (excess <= 1e-6 and bool((sh[:, ~hit] == 0).all())
+              and bool((sh_want[:, hit] != 0).any()))
+        log(f"[B4p] max |diff| {float(d.max()):.3g}, bound |diff| <= 1e-6 + "
+            f"{MAX_SH_REL:.3g} |sh| (excess {excess:.3g}), 0 where no hit: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("ao_capture_packed disagrees with its plain "
+                               "version")
+        ao_atlas = sweep_tiled.kernel_atlas(pao, args["dtype"])
+        kargs = (ao_atlas, pao.slots, args["meta"], args["s_grid"],
+                 args["t_grid"], m_hit, args["dtype"])
+        ms = time_cuda(lambda: sweep_tiled.ao_capture_packed_kernel(*kargs),
+                       7)
+        wrapper_ms = time_cuda(lambda: sweep_tiled.ao_capture_packed(
+            **ao_args), 7)
+        plain_ms = time_cuda(
+            lambda: sweep_tiled.ao_capture_packed_plain(**ao_args), 3)
+        TX, TY, occ, counts, _, _ = sweep_tiled.ao_packed_tables(
+            pao, args["meta"], m_hit)
+        # the slot entries B4p reads: planes zf and zf + 1 of kept pairs
+        k, pid = torch.nonzero(occ.flatten(1), as_tuple=True)
+        zf = args["meta"][k, 2].long()
+        entries = torch.unique(torch.cat([zf, zf + 1]) * occ[0].numel()
+                               + torch.cat([pid, pid])).numel()
+        bound, bound_by = ao_tiled_bound_ms(
+            (pao.shape[0], 4) + tuple(pao.shape[1:]),
+            ao_atlas.element_size(), args["meta"], args["s_grid"],
+            args["t_grid"], m_hit, 1, (TX, TY, occ, counts, args["meta"]),
+            entries * 4)
+        log(f"[B4p] kept pairs {int(occ.sum())} on {int((counts > 0).sum())} "
+            f"slices; kernel {ms:.3f} ms (median of 7; the wrapper, the atlas "
+            f"cast once and kept, {wrapper_ms:.3f} ms), plain {plain_ms:.1f} "
+            f"ms (median of 3), bound {bound:.4f} ms by {bound_by}")
+        rows["ao_packed"] = {"max_abs_err": float(d.max()), "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": bound_by, "library_ms": None}
+        del args, got, want, b2_dense, sh, sh_want, d
+
+    with phase("15 packed 512^3 G-buffer frames, 20 each"):
+        for tag, g, rcfg, ao in (
+                ("packed 512^3 G-buffer", packed512, cfg512, False),
+                ("packed 512^3 G-buffer + packed bf16 AO", packed512_ao,
+                 ao512, True),
+                ("packed ejecta 512^3 G-buffer", packed_ej, cfg512, False)):
+            def run(i, g=g, rcfg=rcfg):
+                return render_gbuffer_sweep(g, cam_at(0.05 * i),
+                                            cam_at(0.05 * i - 0.03), rcfg)
+
+            fr, launches = drive(run, 20, tag, counters)
+            want = {"sweep_march_packed": 20}
+            if ao:
+                want["ao_capture_packed"] = 20
+            expect(launches, want, tag)
+            add(launches)
+            hit = fr[..., 3] > 0.5
+            if not bool(torch.isfinite(fr).all()) or not bool(hit.any()):
+                raise RuntimeError(f"[{tag}] non-finite or empty G-buffer")
+            ao_hit = fr[..., 10][hit]
+            log(f"[{tag}] mask share {float(hit.float().mean()):.4f}, AO on "
+                f"hits: min {float(ao_hit.min()):.4f}, mean "
+                f"{float(ao_hit.mean()):.4f}")
+            if ao and not bool((ao_hit < 1.0).any()):
+                raise RuntimeError(f"[{tag}] the AO channel is 1 on every "
+                                   f"hit")
+        log("dense 512^3 G-buffer frames (phase 10) for comparison: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in FRAME_MS.items()
+                        if k.startswith("512^3 G-buffer")))
+        del fr, packed512_ao, packed_ej
+
+    with phase("16 main path on the packed 512^3 blobs: run00015, 20 frames"):
+        pipe = InferencePipeline(lm15.model, lm15.cfg, cfg512,
+                                 device="cuda")
+        rgb, launches = drive(
+            lambda i: pipe.frame(packed512, cam_at(0.03 * i)), 20,
+            "packed 512^3 planar f32 (run00015)", counters)
+        check_rgb(rgb, pipe.state.prev_high[..., 0:16] > 0.0,
+                  (1080, 1920, 3))
+        expect(launches, {"sweep_march_packed": 20}, "packed 512^3 planar")
+        add(launches)
+        copies = {}
+        for tag, g in (("dense", grid512), ("packed", packed512)):
+            pipe.reset()
+            copies[tag] = copy_ms(lambda i, g=g: pipe.frame(
+                g, cam_at(0.03 * i)))
+        log(f"[512^3 main path] ms/frame: dense (phase 11) "
+            f"{FRAME_MS['512^3 planar f32 (run00015)']:.2f}, packed "
+            f"{FRAME_MS['packed 512^3 planar f32 (run00015)']:.2f}; device "
+            f"ms/frame of copies (of all kernels), torch.profiler over 5 "
+            f"frames: " + ", ".join(f"{k} {c:.3f} ({b:.2f})"
+                                    for k, (c, b) in copies.items()))
+        del pipe, grid512, packed512
+
+    with phase("17 small packed frames: card vs CPU"):
+        tiny_p = RenderConfig(width=64, height=48, isovalue=0.36,
+                              renderer="sweep_pallas", sweep_oversample=1.25,
+                              sweep_dtype="bfloat16", ao_samples=64,
+                              ao_mode="volume")
+        field48 = attach_baked_ao(analytic.blobs_volume(48, device="cuda"),
+                                  0.36, 0.2).ao_sh
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            g = SparseBrickGrid.from_brick_grid(
+                dataclasses.replace(analytic.blobs_volume(48, device=dev),
+                                    ao_sh=field48.to(dev)),
+                tile=16, tolerance=1e-3, ao_tile=16)
+            ff = FusedFrame(lm15.model.to(dev), lm15.cfg, tiny_p,
+                            planar="off", device=dev)
+            st = initial_state(lm15.cfg, tiny_p, planar="off", device=dev)
+            before = (sweep_tiled.march_packed_kernel.launches,
+                      sweep_tiled.ao_capture_packed_kernel.launches)
+            for i in range(3):
+                rgb_s, fr_s, st = ff(g, cam_at(0.05 * i),
+                                     cam_at(0.05 * i - 0.03), st)
+            after = (sweep_tiled.march_packed_kernel.launches,
+                     sweep_tiled.ao_capture_packed_kernel.launches)
+            if dev == "cuda" and after != (before[0] + 3, before[1] + 3):
+                raise RuntimeError("the small packed frames did not launch "
+                                   "B3 and B4p once each per frame")
+            outs[dev] = (rgb_s.cpu(), fr_s.cpu())
+        check_card_vs_cpu("packed 48^3, tiles 16, packed AO", outs, True)
+        lm15.model.to("cuda")
+
+    log(f"launches over the main-path runs of phases 4, 6, 7, 10, 11, 15 "
+        f"and 16: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),
@@ -884,7 +1169,11 @@ def main() -> int:
             ("sweep_march_tiled", MARCH_SOURCE, TILED_REPLACES,
              rows["tiled"]),
             ("ao_capture_tiled", MARCH_SOURCE, AO_TILED_REPLACES,
-             rows["ao_tiled full-res bf16 field"])):
+             rows["ao_tiled full-res bf16 field"]),
+            ("sweep_march_packed", MARCH_SOURCE, PACKED_REPLACES,
+             rows["packed"]),
+            ("ao_capture_packed", MARCH_SOURCE, AO_PACKED_REPLACES,
+             rows["ao_packed"])):
         kernels_line.append({"name": name, "route": "cuda", "source": source,
                              "replaces": replaces,
                              "launches": path_launches[name], **row})

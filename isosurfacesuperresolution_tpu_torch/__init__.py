@@ -20,5 +20,7 @@ field (`render/ao_sweep.py`), flow inpainting, and either the interleaved
 network (the shift-blend warp of the 4x state, the trained EnhanceNet) or
 the sub-pixel-planar engine (`infer/planar.py`, whose post3 layer may run
 through the CUDA phase conv, `ops/phase_conv.py`), then clamp and
-screen-space shading.
+screen-space shading.  Large volumes render through the occupancy-gated
+tiled march (`render/sweep_tiled.py`), over a dense grid or one packed
+into per-axis atlases of occupied slice tiles (`volume/packed.py`).
 """

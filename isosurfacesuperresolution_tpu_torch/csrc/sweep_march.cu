@@ -1,5 +1,6 @@
 // Sweep march for Hopper (sm_90a): the flat march (B1), the tiled march
-// (B2) and the tiled AO capture (B4).
+// (B2) and the tiled AO capture (B4), and B2 and B4 over packed storage
+// (B3, B4p).
 //
 // B1 replaces the TPU kernel `_march_kernel` behind `march_pallas` in
 // isosurfacesuperresolution_tpu/render/sweep_pallas.py, both forms
@@ -74,6 +75,27 @@
 // loop over slices.  The field is read through its strides (a permuted
 // view is not copied).
 // Bound: the field values sampled at the hits; the reads are scattered.
+//
+// B3 replaces `_tiled_kernel` in its packed form, behind
+// `march_pallas_packed` in sweep_pallas_tiled.py: B2's function over a
+// volume kept as an atlas of (TX, TY) slice tiles (only the tiles that
+// differ from the background) and an int32 slot table slots[z][xt][yt]
+// (slot 0: the all-background tile, stored 0).  It is the TILED march with
+// a PACKED load: tap (jx, jy) of planes zf and zf + 1 reads
+// atlas[slots[z][jx / TX][jy / TY]] at (jx % TX, jy % TY); the tile test
+// against the tile table (of the atlas's tiles), the whole-slice skip and
+// the neighbours' Fm1 are B2's.  The TPU kernel resolves the slots into
+// per-frame (K, P) rows of SMEM outside the kernel; the slot table does not
+// depend on the camera, so here each tap reads it directly (one more load,
+// from a small table that stays in L1/L2).  On the same tiles a lossless
+// atlas gives B2's result bit for bit.
+//
+// B4p replaces `_ao_capture_kernel` in its packed form, behind
+// `ao_capture_packed`: B4 over an AO atlas (N, 4, TX, TY) in the resample
+// type and its slot table, at full resolution (no dequant, inv_f = 1).  A
+// tile pair is kept when the slice's do-flag is set and its slot is
+// non-zero on plane zf or zf + 1; no brick test, no dilation.  The pair's
+// two tiles are read at their atlas slots; the sums are B4's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,17 +122,32 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// the tiled march's tile table (Zt rows of P + 1 floats), its isovalue and
+// the tile geometry, and for packed storage the (Z, NTX, NTY) slot table
+// (null otherwise); all unused (null) by the flat march
+struct Tiles {
+  const float* tab;
+  const int* slots;
+  int Zt, P, TX, TY, NTY;
+  float iso;
+  // the table row of the slice with meta row m
+  __device__ const float* row(const float* m) const {
+    const int zf = min(max(static_cast<int>(m[2]), 0), Zt - 1);
+    return tab + static_cast<size_t>(zf) * (P + 1);
+  }
+};
+
 // F at pixel (sg, tg) of the slice described by meta row m; plane z of
 // the field starts at vol + z * zstride.  TILED: only taps whose tile's
-// entry in the slice's tile-table row tab reaches iso contribute.
-template <typename T, bool BF16, bool TILED = false>
+// entry in the slice's tile-table row tab reaches tl.iso contribute.
+// PACKED: vol is the atlas, tile s starting at vol + s * zstride, and the
+// tile of plane z at (xt, yt) is tl.slots[(z * NTX + xt) * NTY + yt].
+template <typename T, bool BF16, bool TILED = false, bool PACKED = false>
 __device__ float sample_slice(const T* __restrict__ vol, size_t zstride,
                               int Z, int X, int Y,
                               const float* __restrict__ m, float sg, float tg,
-                              float scale, float offset,
-                              const float* __restrict__ tab = nullptr,
-                              float iso = 0.f, int TX = 1, int TY = 1,
-                              int NTY = 1) {
+                              float scale, float offset, const Tiles& tl,
+                              const float* __restrict__ tab = nullptr) {
   const float lam = m[1];
   const float fz = m[3];
   const float eye_s = m[6];
@@ -122,8 +159,10 @@ __device__ float sample_slice(const T* __restrict__ vol, size_t zstride,
   // the tent max(0, 1 - |pos - (j + 0.5)|) is non-zero for j0 and j0 + 1
   const int jx0 = static_cast<int>(floorf(s_pos - 0.5f));
   const int jy0 = static_cast<int>(floorf(t_pos - 0.5f));
-  const T* p0 = vol + static_cast<size_t>(zf) * zstride;
+  const T* p0 = vol + (PACKED ? 0 : static_cast<size_t>(zf) * zstride);
   const T* p1 = p0 + zstride;
+  // PACKED: the slot rows of planes zf and zf + 1
+  const int* s0 = PACKED ? tl.slots + static_cast<size_t>(zf) * tl.P : nullptr;
   float F = 0.f;
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
@@ -134,11 +173,23 @@ __device__ float sample_slice(const T* __restrict__ vol, size_t zstride,
     for (int a = 0; a < 2; ++a) {
       const int jx = jx0 + a;
       if (jx < 0 || jx >= X) continue;
-      if (TILED && !(__ldg(tab + (jx / TX) * NTY + jy / TY) >= iso)) {
-        continue;
+      const int xt = TILED ? jx / tl.TX : 0;
+      const int yt = TILED ? jy / tl.TY : 0;
+      if (TILED && !(__ldg(tab + xt * tl.NTY + yt) >= tl.iso)) continue;
+      float v0, v1;
+      if (PACKED) {
+        const int c = xt * tl.NTY + yt;
+        const size_t i = static_cast<size_t>(jx - xt * tl.TX) * tl.TY +
+                         (jy - yt * tl.TY);
+        v0 = load_f32(vol + static_cast<size_t>(__ldg(s0 + c)) * zstride + i);
+        v1 = load_f32(vol + static_cast<size_t>(__ldg(s0 + tl.P + c)) * zstride +
+                      i);
+      } else {
+        const size_t i = static_cast<size_t>(jx) * Y + jy;
+        v0 = load_f32(p0 + i);
+        v1 = load_f32(p1 + i);
       }
-      const size_t i = static_cast<size_t>(jx) * Y + jy;
-      float sl = (1.f - fz) * load_f32(p0 + i) + fz * load_f32(p1 + i);
+      float sl = (1.f - fz) * v0 + fz * v1;
       sl = sl * scale + offset;
       float wx = fmaxf(0.f, 1.f - fabsf(s_pos - (static_cast<float>(jx) + 0.5f)));
       if (BF16) {
@@ -167,20 +218,7 @@ struct AoStore<true> {
   using type = __nv_bfloat16;
 };
 
-// the tiled march's tile table (Zt rows of P + 1 floats), its isovalue and
-// the tile geometry; unused (null) by the flat march
-struct Tiles {
-  const float* tab;
-  int Zt, P, TX, TY, NTY;
-  float iso;
-  // the table row of the slice with meta row m
-  __device__ const float* row(const float* m) const {
-    const int zf = min(max(static_cast<int>(m[2]), 0), Zt - 1);
-    return tab + static_cast<size_t>(zf) * (P + 1);
-  }
-};
-
-template <typename T, bool BF16, bool HAS_AO, bool TILED>
+template <typename T, bool BF16, bool HAS_AO, bool TILED, bool PACKED = false>
 __global__ void __launch_bounds__(256)
 march_kernel(const T* __restrict__ vol,
              const typename AoStore<BF16>::type* __restrict__ ao,
@@ -194,7 +232,9 @@ march_kernel(const T* __restrict__ vol,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = blockIdx.y * blockDim.y + threadIdx.y;
   if (s >= Sn || t >= Tn) return;
-  const size_t plane = static_cast<size_t>(X) * Y;
+  // a plane of the volume; PACKED: a tile of the atlas
+  const size_t plane = PACKED ? static_cast<size_t>(tl.TX) * tl.TY
+                              : static_cast<size_t>(X) * Y;
   const float sg = s_grid[s];
   const float tg = t_grid[t];
   float o_m = -1.f, o_frac = 0.f, o_gs = 0.f, o_gt = 0.f, o_gz = 0.f;
@@ -209,9 +249,8 @@ march_kernel(const T* __restrict__ vol,
       fm1 = 0.f;
       continue;
     }
-    const float F = sample_slice<T, BF16, TILED>(
-        vol, plane, Z, X, Y, m, sg, tg, scale, offset, tab_k, tl.iso, tl.TX,
-        tl.TY, tl.NTY);
+    const float F = sample_slice<T, BF16, TILED, PACKED>(
+        vol, plane, Z, X, Y, m, sg, tg, scale, offset, tl, tab_k);
     const float iso = m[5];
     if (F >= iso) {
       const float d = F - fm1;
@@ -229,18 +268,14 @@ march_kernel(const T* __restrict__ vol,
         const int sm = s == 0 ? Sn - 1 : s - 1;
         const int tp = t + 1 == Tn ? 0 : t + 1;
         const int tm = t == 0 ? Tn - 1 : t - 1;
-        const float f_sp = sample_slice<T, BF16, TILED>(
-            vol, plane, Z, X, Y, mp, s_grid[sp], tg, scale, offset, tab_p,
-            tl.iso, tl.TX, tl.TY, tl.NTY);
-        const float f_sm = sample_slice<T, BF16, TILED>(
-            vol, plane, Z, X, Y, mp, s_grid[sm], tg, scale, offset, tab_p,
-            tl.iso, tl.TX, tl.TY, tl.NTY);
-        const float f_tp = sample_slice<T, BF16, TILED>(
-            vol, plane, Z, X, Y, mp, sg, t_grid[tp], scale, offset, tab_p,
-            tl.iso, tl.TX, tl.TY, tl.NTY);
-        const float f_tm = sample_slice<T, BF16, TILED>(
-            vol, plane, Z, X, Y, mp, sg, t_grid[tm], scale, offset, tab_p,
-            tl.iso, tl.TX, tl.TY, tl.NTY);
+        const float f_sp = sample_slice<T, BF16, TILED, PACKED>(
+            vol, plane, Z, X, Y, mp, s_grid[sp], tg, scale, offset, tl, tab_p);
+        const float f_sm = sample_slice<T, BF16, TILED, PACKED>(
+            vol, plane, Z, X, Y, mp, s_grid[sm], tg, scale, offset, tl, tab_p);
+        const float f_tp = sample_slice<T, BF16, TILED, PACKED>(
+            vol, plane, Z, X, Y, mp, sg, t_grid[tp], scale, offset, tl, tab_p);
+        const float f_tm = sample_slice<T, BF16, TILED, PACKED>(
+            vol, plane, Z, X, Y, mp, sg, t_grid[tm], scale, offset, tl, tab_p);
         o_gs = 0.5f * (f_sp - f_sm);
         o_gt = 0.5f * (f_tp - f_tm);
       }
@@ -250,7 +285,7 @@ march_kernel(const T* __restrict__ vol,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           o_sh[c] = sample_slice<typename AoStore<BF16>::type, BF16>(
-              ao + c * plane, 4 * plane, Z, X, Y, m, sg, tg, 1.f, 0.f);
+              ao + c * plane, 4 * plane, Z, X, Y, m, sg, tg, 1.f, 0.f, tl);
         }
       }
       break;
@@ -287,7 +322,11 @@ void launch(const void* vol, const void* ao, const void* meta,
   float* o[6] = {static_cast<float*>(m_hit), static_cast<float*>(frac),
                  static_cast<float*>(g_s), static_cast<float*>(g_t),
                  static_cast<float*>(g_z), static_cast<float*>(sh)};
-  if (tl.tab != nullptr) {
+  if (tl.slots != nullptr) {
+    march_kernel<T, BF16, false, true, true><<<grid, block, 0, stream>>>(
+        v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, tl, o[0], o[1],
+        o[2], o[3], o[4], o[5]);
+  } else if (tl.tab != nullptr) {
     march_kernel<T, BF16, false, true><<<grid, block, 0, stream>>>(
         v, a, mt, sg, tg, K, Z, X, Y, Sn, Tn, scale, offset, tl, o[0], o[1],
         o[2], o[3], o[4], o[5]);
@@ -302,15 +341,18 @@ void launch(const void* vol, const void* ao, const void* meta,
   }
 }
 
-// B4: see the note at the top.  One thread per intermediate pixel.
-template <typename S, bool BF16>
+// B4 and B4p: see the note at the top.  One thread per intermediate
+// pixel.  PACKED: field is the atlas, (sz, sc, sx, sy) its strides per slot,
+// channel, x and y, and slots the (Z2, NTX, NTY) slot table; tab is unused.
+template <typename S, bool BF16, bool PACKED = false>
 __global__ void __launch_bounds__(256)
 ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
                   long long sx, long long sy, const float* __restrict__ meta,
                   const float* __restrict__ s_grid,
                   const float* __restrict__ t_grid,
                   const float* __restrict__ m_hit,
-                  const float* __restrict__ tab, int Zt, int K, int Z2,
+                  const float* __restrict__ tab,
+                  const int* __restrict__ slots, int Zt, int K, int Z2,
                   int X2, int Y2, int Sn, int Tn, int P, int TX, int TY,
                   int NTY, int fd, float iso, float inv_f, float4 scale,
                   float4 offset, float* __restrict__ sh) {
@@ -326,8 +368,9 @@ ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
   if (mh >= 0.f && m[4] > 0.5f) {
     // the slice's row of the dilated table (fine voxels)
     const float* tab_k =
-        tab + static_cast<size_t>(min(max(static_cast<int>(m[2]), 0),
-                                      Zt - 1)) * (P + 1);
+        PACKED ? nullptr
+               : tab + static_cast<size_t>(min(max(static_cast<int>(m[2]), 0),
+                                               Zt - 1)) * (P + 1);
     const float lam = m[1];
     const float eye_s = m[6];
     const float eye_t = m[7];
@@ -365,8 +408,8 @@ ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
     }
     const float sc4[4] = {scale.x, scale.y, scale.z, scale.w};
     const float of4[4] = {offset.x, offset.y, offset.z, offset.w};
-    const S* p0 = field + static_cast<long long>(zf) * sz;
-    const S* p1 = p0 + sz;
+    // PACKED: the slot rows of planes zf and zf + 1
+    const int* s0 = PACKED ? slots + static_cast<size_t>(zf) * P : nullptr;
     // pairs in increasing id xt * NTY + yt: distinct x tiles, then y tiles
     for (int ia = 0; ia < 2; ++ia) {
       const int pxt = xt[ia];
@@ -374,7 +417,23 @@ ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
       for (int ib = 0; ib < 2; ++ib) {
         const int pyt = yt[ib];
         if (pyt < 0 || (ib == 1 && pyt == yt[0])) continue;
-        if (!(__ldg(tab_k + pxt * NTY + pyt) >= iso)) continue;
+        // the pair's planes zf and zf + 1, and the field index of their
+        // first element
+        const S* p0 = field + static_cast<long long>(zf) * sz;
+        const S* p1 = p0 + sz;
+        int ox = 0, oy = 0;
+        if (PACKED) {
+          // slot 0 is the all-zero tile
+          const int c0 = __ldg(s0 + pxt * NTY + pyt);
+          const int c1 = __ldg(s0 + P + pxt * NTY + pyt);
+          if (c0 == 0 && c1 == 0) continue;
+          p0 = field + c0 * sz;
+          p1 = field + c1 * sz;
+          ox = pxt * TX;
+          oy = pyt * TY;
+        } else if (!(__ldg(tab_k + pxt * NTY + pyt) >= iso)) {
+          continue;
+        }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           float term = 0.f;
@@ -383,7 +442,8 @@ ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
             float tmp = 0.f;
             for (int a = 0; a < 2; ++a) {
               if (xt[a] != pxt) continue;
-              const long long i = (jx0 + a) * sx + (jy0 + b) * sy + c * sc;
+              const long long i =
+                  (jx0 + a - ox) * sx + (jy0 + b - oy) * sy + c * sc;
               float v = (1.f - fz) * load_f32(p0 + i) +
                         fz * load_f32(p1 + i);
               v = v * sc4[c] + of4[c];
@@ -403,21 +463,55 @@ ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
   for (int c = 0; c < 4; ++c) sh[c * n + o] = acc[c];
 }
 
-template <typename S, bool BF16>
+template <typename S, bool BF16, bool PACKED = false>
 void launch_ao(const void* field, long long sz, long long sc, long long sx,
                long long sy, const void* meta, const void* s_grid,
-               const void* t_grid, const void* m_hit, const void* tab, int Zt,
-               int K, int Z2, int X2, int Y2, int Sn, int Tn, int P, int TX,
-               int TY, int NTY, int fd, float iso, float inv_f, float4 scale,
-               float4 offset, void* sh, cudaStream_t stream) {
+               const void* t_grid, const void* m_hit, const void* tab,
+               const void* slots, int Zt, int K, int Z2, int X2, int Y2,
+               int Sn, int Tn, int P, int TX, int TY, int NTY, int fd,
+               float iso, float inv_f, float4 scale, float4 offset, void* sh,
+               cudaStream_t stream) {
   const dim3 block(32, 8);
   const dim3 grid((Tn + block.x - 1) / block.x, (Sn + block.y - 1) / block.y);
-  ao_capture_kernel<S, BF16><<<grid, block, 0, stream>>>(
+  ao_capture_kernel<S, BF16, PACKED><<<grid, block, 0, stream>>>(
       static_cast<const S*>(field), sz, sc, sx, sy,
       static_cast<const float*>(meta), static_cast<const float*>(s_grid),
       static_cast<const float*>(t_grid), static_cast<const float*>(m_hit),
-      static_cast<const float*>(tab), Zt, K, Z2, X2, Y2, Sn, Tn, P, TX, TY,
-      NTY, fd, iso, inv_f, scale, offset, static_cast<float*>(sh));
+      static_cast<const float*>(tab), static_cast<const int*>(slots), Zt, K,
+      Z2, X2, Y2, Sn, Tn, P, TX, TY, NTY, fd, iso, inv_f, scale, offset,
+      static_cast<float*>(sh));
+}
+
+// B2, or B3 when slots is not null
+int march_tiled(const void* vol, int store, int mm_bf16, const void* slots,
+                const void* meta, const void* s_grid, const void* t_grid,
+                const void* tab, int Zt, int K, int Z, int X, int Y, int Sn,
+                int Tn, int P, int TX, int TY, int NTY, float iso, float scale,
+                float offset, void* m_hit, void* frac, void* g_s, void* g_t,
+                void* g_z, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K < 1 || Z < 2 || X < 1 || Y < 1 || Sn < 1 || Tn < 1 || tab == nullptr ||
+      Zt < 1 || TX < 1 || TY < 1 || X % TX || Y % TY || NTY != Y / TY ||
+      P != (X / TX) * NTY) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Tiles tl = {static_cast<const float*>(tab),
+                    static_cast<const int*>(slots), Zt, P, TX, TY, NTY, iso};
+  const void* ao = nullptr;
+  void* sh = nullptr;
+#define TILED_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
+    offset, tl, m_hit, frac, g_s, g_t, g_z, sh, st
+  switch (store * 2 + (mm_bf16 ? 1 : 0)) {
+    case 0: launch<float, false>(TILED_ARGS); break;
+    case 1: launch<float, true>(TILED_ARGS); break;
+    case 2: launch<__nv_bfloat16, false>(TILED_ARGS); break;
+    case 3: launch<__nv_bfloat16, true>(TILED_ARGS); break;
+    case 4: launch<uint8_t, false>(TILED_ARGS); break;
+    case 5: launch<uint8_t, true>(TILED_ARGS); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TILED_ARGS
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -437,7 +531,7 @@ extern "C" int sweep_march(const void* vol, int store, int mm_bf16,
       (ao != nullptr && sh == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Tiles tl = {nullptr, 1, 0, 1, 1, 1, 0.f};
+  const Tiles tl = {nullptr, nullptr, 1, 0, 1, 1, 1, 0.f};
 #define MARCH_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
     offset, tl, m_hit, frac, g_s, g_t, g_z, sh, st
   switch (store * 2 + (mm_bf16 ? 1 : 0)) {
@@ -465,28 +559,28 @@ extern "C" int sweep_march_tiled(const void* vol, int store, int mm_bf16,
                                  float scale, float offset, void* m_hit,
                                  void* frac, void* g_s, void* g_t, void* g_z,
                                  void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K < 1 || Z < 2 || X < 1 || Y < 1 || Sn < 1 || Tn < 1 || tab == nullptr ||
-      Zt < 1 || TX < 1 || TY < 1 || X % TX || Y % TY || NTY != Y / TY ||
-      P != (X / TX) * NTY) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Tiles tl = {static_cast<const float*>(tab), Zt, P, TX, TY, NTY, iso};
-  const void* ao = nullptr;
-  void* sh = nullptr;
-#define TILED_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
-    offset, tl, m_hit, frac, g_s, g_t, g_z, sh, st
-  switch (store * 2 + (mm_bf16 ? 1 : 0)) {
-    case 0: launch<float, false>(TILED_ARGS); break;
-    case 1: launch<float, true>(TILED_ARGS); break;
-    case 2: launch<__nv_bfloat16, false>(TILED_ARGS); break;
-    case 3: launch<__nv_bfloat16, true>(TILED_ARGS); break;
-    case 4: launch<uint8_t, false>(TILED_ARGS); break;
-    case 5: launch<uint8_t, true>(TILED_ARGS); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef TILED_ARGS
-  return static_cast<int>(cudaGetLastError());
+  return march_tiled(vol, store, mm_bf16, nullptr, meta, s_grid, t_grid, tab,
+                     Zt, K, Z, X, Y, Sn, Tn, P, TX, TY, NTY, iso, scale, offset,
+                     m_hit, frac, g_s, g_t, g_z, stream);
+}
+
+// The packed march (B3): B2's arguments with the volume kept as an atlas
+// (N, TX, TY) (store 0 / 1 / 2: float32, bfloat16, uint8) and its int32
+// slot table slots (Z, X / TX, Y / TY); tab is the tile table of the
+// atlas's tiles.  Returns the cudaGetLastError() code.
+extern "C" int sweep_march_packed(const void* atlas, int store, int mm_bf16,
+                                  const void* slots, const void* meta,
+                                  const void* s_grid, const void* t_grid,
+                                  const void* tab, int Zt, int K, int Z, int X,
+                                  int Y, int Sn, int Tn, int P, int TX, int TY,
+                                  int NTY, float iso, float scale,
+                                  float offset, void* m_hit, void* frac,
+                                  void* g_s, void* g_t, void* g_z,
+                                  void* stream) {
+  if (slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return march_tiled(atlas, store, mm_bf16, slots, meta, s_grid, t_grid, tab,
+                     Zt, K, Z, X, Y, Sn, Tn, P, TX, TY, NTY, iso, scale, offset,
+                     m_hit, frac, g_s, g_t, g_z, stream);
 }
 
 // The tiled AO capture (B4): field (Z2, 4, X2, Y2) addressed through its
@@ -514,9 +608,10 @@ extern "C" int ao_capture_tiled(const void* field, int store, int mm_bf16,
   }
   const float4 scale = make_float4(s0, s1, s2, s3);
   const float4 offset = make_float4(o0, o1, o2, o3);
-#define AO_ARGS field, sz, sc, sx, sy, meta, s_grid, t_grid, m_hit, tab, Zt, \
-    K, Z2, X2, Y2, Sn, Tn, P, TX, TY, NTY, fd, iso, inv_f, scale, offset, sh, \
-    st
+  const void* slots = nullptr;
+#define AO_ARGS field, sz, sc, sx, sy, meta, s_grid, t_grid, m_hit, tab, \
+    slots, Zt, K, Z2, X2, Y2, Sn, Tn, P, TX, TY, NTY, fd, iso, inv_f, scale, \
+    offset, sh, st
   switch (store * 2 + (mm_bf16 ? 1 : 0)) {
     case 0: launch_ao<float, false>(AO_ARGS); break;
     case 1: launch_ao<float, true>(AO_ARGS); break;
@@ -527,5 +622,36 @@ extern "C" int ao_capture_tiled(const void* field, int store, int mm_bf16,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef AO_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The packed AO capture (B4p): atlas (N, 4, TX, TY) contiguous in the
+// resample type (float32, or bfloat16 when mm_bf16), its int32 slot table
+// slots (Z, X / TX, Y / TY), the march's meta and m_hit (Sn, Tn).  Writes
+// sh (4, Sn, Tn).  Returns the cudaGetLastError() code.
+extern "C" int ao_capture_packed(const void* atlas, int mm_bf16,
+                                 const void* slots, const void* meta,
+                                 const void* s_grid, const void* t_grid,
+                                 const void* m_hit, int K, int Z, int X, int Y,
+                                 int Sn, int Tn, int TX, int TY, void* sh,
+                                 void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K < 1 || Z < 2 || X < 1 || Y < 1 || Sn < 1 || Tn < 1 || TX < 1 ||
+      TY < 1 || X % TX || Y % TY || slots == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int NTY = Y / TY;
+  const long long tile = static_cast<long long>(TX) * TY;
+  const float4 one = make_float4(1.f, 1.f, 1.f, 1.f);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#define PACKED_ARGS atlas, 4 * tile, tile, TY, 1, meta, s_grid, t_grid, m_hit, \
+    nullptr, slots, 1, K, Z, X, Y, Sn, Tn, (X / TX) * NTY, TX, TY, NTY, 1, \
+    0.f, 1.f, one, zero, sh, st
+  if (mm_bf16) {
+    launch_ao<__nv_bfloat16, true, true>(PACKED_ARGS);
+  } else {
+    launch_ao<float, false, true>(PACKED_ARGS);
+  }
+#undef PACKED_ARGS
   return static_cast<int>(cudaGetLastError());
 }

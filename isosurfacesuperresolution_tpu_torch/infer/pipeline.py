@@ -12,7 +12,8 @@ False, a host bool) starts from the "unshaded" initial image.
 whenever the model configuration supports it, as in JAX; "on" requires it
 and "off" runs the interleaved network.  The planar frame returns
 channel-first RGB (3, Hh, Wh) and carries a (1, h, w, 96) nested state;
-`InferencePipeline.frame` returns (Hh, Wh, 3) either way.
+`InferencePipeline.frame` returns (Hh, Wh, 3) either way.  The grid is a
+dense `BrickGrid` or a packed `SparseBrickGrid`, as in JAX.
 """
 
 from __future__ import annotations
@@ -41,8 +42,7 @@ from isosurfacesuperresolution_tpu_torch.render.raycast import (
 from isosurfacesuperresolution_tpu_torch.render.shading import (
     safe_normalize, screen_space_shading)
 from isosurfacesuperresolution_tpu_torch.render.sweep import (
-    render_gbuffer_sweep)
-from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
+    AnyGrid, render_gbuffer_sweep)
 
 
 class FrameState(NamedTuple):
@@ -133,12 +133,12 @@ class FusedFrame:
                 cfg.model.output_channels, self.device)
 
     @torch.no_grad()
-    def __call__(self, grid: BrickGrid, cam: CameraParams,
+    def __call__(self, grid: AnyGrid, cam: CameraParams,
                  cam_prev: CameraParams, state: FrameState,
                  rp: Optional[RenderParams] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, FrameState]:
-        if grid.values.device.type != self.device.type:
-            raise ValueError(f"grid is on {grid.values.device}, the frame "
+        if grid.device.type != self.device.type:
+            raise ValueError(f"grid is on {grid.device}, the frame "
                              f"runs on {self.device}")
         m = self.cfg.model
         u = m.upscale_factor
@@ -210,7 +210,7 @@ class InferencePipeline:
                                    self.upscale_mode, device=self.device)
         self._last_cam: Optional[CameraParams] = None
 
-    def frame(self, grid: BrickGrid, cam: CameraParams) -> torch.Tensor:
+    def frame(self, grid: AnyGrid, cam: CameraParams) -> torch.Tensor:
         """Render + super-resolve + shade one frame; (Hh, Wh, 3) on the
         device."""
         cam_prev = self._last_cam if self._last_cam is not None else cam

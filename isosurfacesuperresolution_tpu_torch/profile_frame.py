@@ -24,7 +24,12 @@ the tiled march:
 * ``gbuffer512``, ``gbuffer512_ao``, ``gbuffer512_aoc``: the G-buffer
   alone (`render_gbuffer_sweep`, orbit steps of 0.05 rad) without AO,
   with the full-resolution bf16 field, with the half-resolution uint8
-  field kept coarse.
+  field kept coarse;
+* ``gbuffer512_packed``, ``gbuffer512_packed_ao``, ``planar512_packed``:
+  ``gbuffer512``, ``gbuffer512_ao`` and ``planar512`` on the grid packed
+  as `scripts/bench_volumes.py --sparse` packs it
+  (`SparseBrickGrid.from_brick_grid(grid, tolerance=1e-3)`, the field
+  included): the packed march (B3) and the packed AO capture (B4p).
 
 For each it prints:
 
@@ -59,11 +64,14 @@ from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
 from isosurfacesuperresolution_tpu_torch.render.sweep import (
     render_gbuffer_sweep)
 from isosurfacesuperresolution_tpu_torch.volume import analytic
+from isosurfacesuperresolution_tpu_torch.volume.packed import (
+    SparseBrickGrid)
 
 ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
 RUN_DIR = ARTIFACTS / "run00017"
 VARIANTS = ("planar", "phase", "phase_ao", "nonplanar", "planar512",
-            "gbuffer512", "gbuffer512_ao", "gbuffer512_aoc")
+            "gbuffer512", "gbuffer512_ao", "gbuffer512_aoc",
+            "gbuffer512_packed", "gbuffer512_packed_ao", "planar512_packed")
 
 
 def cam_at(ang: float) -> CameraParams:
@@ -140,13 +148,16 @@ def main() -> None:
     grids512 = {}
 
     def grid512(field: str):
-        """The 512^3 uint8 grid, made once, with its AO field baked on
-        first use."""
+        """The 512^3 uint8 grid, made once, with its AO field baked and
+        its packed forms made on first use."""
         if "" not in grids512:
             t = time.time()
             grids512[""] = analytic.blobs_volume(512, store_dtype="uint8")
             print(f"blobs_volume(512) uint8: {time.time() - t:.1f} s")
-        if field not in grids512:
+        if field not in grids512 and field.startswith("packed"):
+            grids512[field] = SparseBrickGrid.from_brick_grid(
+                grid512(field[len("packed_"):]), tolerance=1e-3)
+        elif field not in grids512:
             kw = (dict(out_dtype=torch.bfloat16) if field == "ao" else
                   dict(downsample=2, keep_coarse=True, out_dtype="uint8"))
             grids512[field] = attach_baked_ao(grids512[""], 0.36, 0.2, **kw)
@@ -154,10 +165,10 @@ def main() -> None:
 
     for variant in variants:
         print(f"== {variant}", flush=True)
-        if variant == "planar512":
+        if variant.startswith("planar512"):
             lm15 = LoadedModel.from_run_dir(str(ARTIFACTS / "run00015"))
             pipe = InferencePipeline(lm15.model, lm15.cfg, cfg512)
-            g = grid512("")
+            g = grid512("packed" if variant.endswith("packed") else "")
 
             def step(i, pipe=pipe, g=g):
                 pipe.frame(g, cam_at(0.03 * i))
@@ -166,8 +177,8 @@ def main() -> None:
         if variant.startswith("gbuffer512"):
             field = variant[len("gbuffer512_"):]
             g = grid512(field)
-            rcfg = (cfg512.replace(ao_samples=64, ao_mode="volume") if field
-                    else cfg512)
+            rcfg = (cfg512.replace(ao_samples=64, ao_mode="volume")
+                    if "ao" in field else cfg512)
 
             def step(i, g=g, rcfg=rcfg):
                 render_gbuffer_sweep(g, cam_at(0.05 * i),

@@ -12,7 +12,7 @@ separable resample.  With a baked SH occlusion field
 (`render/ao_sweep.attach_baked_ao`) the field is captured at the hit
 plane and the AO channel is ``ao_from_sh(sh, normal)``.
 
-Three marches, chosen as in the JAX package:
+Four marches, chosen as in the JAX package:
 
 * ``renderer="sweep"``: the reference's slice scan (`scan_march`), in
   stock PyTorch ops, rounding where the scan rounds; an oracle path;
@@ -20,10 +20,15 @@ Three marches, chosen as in the JAX package:
   (`render/sweep_march.py`, B1), with the AO field captured in the march;
 * ``renderer="sweep_pallas"`` with ``sweep_tile`` > 0, or 0 and a slice
   plane of at least 512 on an axis: the occupancy-gated tiled march (B2)
-  and a second pass for the AO field (B4) (`render/sweep_tiled.py`).
+  and a second pass for the AO field (B4) (`render/sweep_tiled.py`);
+* a `volume/packed.SparseBrickGrid` (``renderer="sweep_pallas"`` only,
+  whatever the size or ``sweep_tile``): the tiled march over the packed
+  volume of the view's axis order (B3), on the atlas's tiles, and a
+  second pass over its packed AO field when it has one (B4p).
 
 A coarse AO field (``ao_downsample`` > 1) is sampled natively by B4; the
-other two marches get it dequantized and upsampled linearly first.
+flat march and the scan get it dequantized and upsampled linearly first,
+and packing upsamples it before it packs (`SparseBrickGrid`).
 
 All geometry that depends on the camera alone (major axis and flip, base
 plane, s/t grids, the per-slice table except its cull flag, the homography
@@ -35,7 +40,7 @@ device data.  Nothing in a frame of the kernel paths waits for the device.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -50,8 +55,13 @@ from isosurfacesuperresolution_tpu_torch.render.raycast import shade_hits
 from isosurfacesuperresolution_tpu_torch.render.sweep_march import (
     _round, march)
 from isosurfacesuperresolution_tpu_torch.render.sweep_tiled import (
-    ao_capture_tiled, march_tiled, per_channel, pick_tile, tile_table)
+    ao_capture_packed, ao_capture_tiled, march_packed, march_tiled,
+    per_channel, pick_tile, tile_table)
 from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
+from isosurfacesuperresolution_tpu_torch.volume.packed import (
+    SparseBrickGrid)
+
+AnyGrid = Union[BrickGrid, SparseBrickGrid]
 
 _PERMS = ((1, 2, 0), (0, 2, 1), (0, 1, 2))  # axis 0 / 1 / 2 as major (last)
 _F32 = torch.float32
@@ -94,7 +104,7 @@ class SweepPlan(NamedTuple):
     swap: bool                     # warp the transposed intermediate
 
 
-def plan_sweep(grid: BrickGrid, cam: CameraParams, cfg: RenderConfig,
+def plan_sweep(grid: AnyGrid, cam: CameraParams, cfg: RenderConfig,
                rp: RenderParams) -> SweepPlan:
     """Major axis and flip, base plane, s/t grids, per-slice table and
     homography for ``cam``, in float32 on the host."""
@@ -226,7 +236,7 @@ def use_tiled(cfg: RenderConfig, plan: SweepPlan, grid: BrickGrid) -> bool:
         tile > 0 or (tile == 0 and max(X, Y) >= 512))
 
 
-def _iso_stored(grid: BrickGrid, rp: RenderParams) -> float:
+def _iso_stored(grid: AnyGrid, rp: RenderParams) -> float:
     """The isovalue in the volume's stored units (float32)."""
     iso = torch.tensor(rp.isovalue, dtype=_F32)
     if grid.value_scale != 1.0 or grid.value_offset != 0.0:
@@ -234,22 +244,30 @@ def _iso_stored(grid: BrickGrid, rp: RenderParams) -> float:
     return iso.item()
 
 
-def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
-                 rp: RenderParams, use_ao_field: bool = False) -> dict:
-    """The keyword arguments of `sweep_march.march` for this view, on the
-    grid's device: one copy of the host geometry, plus the cull flag,
-    the only slice metadata that reads the device (the per-slice max),
-    and with ``use_ao_field`` the baked SH field in the march's order."""
-    dev = grid.values.device
-    meta, s_grid, t_grid = upload(dev, plan.meta, plan.s_grid, plan.t_grid)
-    # per-slice max in STORED units against the stored-unit isovalue
-    # (uint8 volumes would never cull against the physical one)
-    perm = plan.perm
-    vmax_z = torch.amax(grid.values,
-                        dim=tuple(a for a in range(3) if a != perm[2]))
+def slice_tables(grid: AnyGrid, plan: SweepPlan, rp: RenderParams,
+                 vmax_z: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The march's meta, s_grid and t_grid on the grid's device: one copy
+    of the host geometry, and the cull flag, the only slice metadata that
+    reads the device: ``vmax_z``, the (Z,) per-plane max of the stored
+    values, against the isovalue in stored units (uint8 volumes would
+    never cull against the physical one)."""
+    meta, s_grid, t_grid = upload(grid.device, plan.meta, plan.s_grid,
+                                  plan.t_grid)
     zf = meta[:, 2].long()
     smax = torch.maximum(vmax_z[zf], vmax_z[zf + 1]).to(_F32)
     meta[:, 4] *= (smax >= _iso_stored(grid, rp)).to(_F32)
+    return meta, s_grid, t_grid
+
+
+def march_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
+                 rp: RenderParams, use_ao_field: bool = False) -> dict:
+    """The keyword arguments of `sweep_march.march` for this view, on the
+    grid's device: the `slice_tables`, and with ``use_ao_field`` the
+    baked SH field in the march's order."""
+    perm = plan.perm
+    vmax_z = torch.amax(grid.values,
+                        dim=tuple(a for a in range(3) if a != perm[2]))
+    meta, s_grid, t_grid = slice_tables(grid, plan, rp, vmax_z)
     return dict(vol_zxy=grid.values.permute(perm[2], perm[0], perm[1]),
                 meta=meta, s_grid=s_grid, t_grid=t_grid, Sn=plan.Sn,
                 Tn=plan.Tn, dtype=getattr(torch, cfg.sweep_dtype),
@@ -277,7 +295,27 @@ def tiled_inputs(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
                 table=table)
 
 
-def grid_tile_table(grid: BrickGrid, perm: Tuple[int, int, int], X: int,
+def packed_inputs(grid: SparseBrickGrid, plan: SweepPlan,
+                  cfg: RenderConfig, rp: RenderParams) -> dict:
+    """The keyword arguments of `sweep_tiled.march_packed` for this view:
+    the packed volume of its axis order, the `slice_tables` (the cull
+    reads the packed per-plane max), the brick pyramid's max in the
+    march's order, the physical isovalue and the tile table of the
+    atlas's tiles (`grid_tile_table`)."""
+    pa = grid.per_axis[_PERMS.index(plan.perm)]
+    meta, s_grid, t_grid = slice_tables(grid, plan, rp, pa.slice_max)
+    _, X, Y = pa.shape
+    table = grid_tile_table(grid, plan.perm, X, Y, *pa.tile_shape, False)
+    return dict(packed_axis=pa, meta=meta, s_grid=s_grid, t_grid=t_grid,
+                Sn=plan.Sn, Tn=plan.Tn,
+                brick_max_p=grid.brick_max.permute(plan.perm),
+                brick_size=grid.brick_size, iso=rp.isovalue,
+                dtype=getattr(torch, cfg.sweep_dtype),
+                scale=grid.value_scale, offset=grid.value_offset,
+                table=table)
+
+
+def grid_tile_table(grid: AnyGrid, perm: Tuple[int, int, int], X: int,
                     Y: int, TX: int, TY: int, dilate: bool) -> torch.Tensor:
     """`sweep_tiled.tile_table` of the grid's brick pyramid in the axis
     order ``perm``, built at first use and kept in ``grid.derived``: it
@@ -371,14 +409,24 @@ def scan_march(vol_zxy: torch.Tensor, meta: torch.Tensor,
     return m_hit, frac, g_s, g_t, g_z, sh
 
 
-def _march(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
+def _march(grid: AnyGrid, plan: SweepPlan, cfg: RenderConfig,
            rp: RenderParams, use_ao_field: bool):
     """The view's march by the renderer's rule: (m_hit, frac, g_s, g_t,
     g_z, sh or None, s_grid, t_grid) on the grid's device."""
     dtype = getattr(torch, cfg.sweep_dtype)
     perm = plan.perm
+    if isinstance(grid, SparseBrickGrid):
+        args = packed_inputs(grid, plan, cfg, rp)
+        outs = march_packed(**args)
+        sh = None
+        if use_ao_field:
+            sh = ao_capture_packed(
+                grid.ao_per_axis[_PERMS.index(perm)], args["meta"],
+                args["s_grid"], args["t_grid"], plan.Sn, plan.Tn, outs[0],
+                dtype=dtype)
+        return (*outs, sh, args["s_grid"], args["t_grid"])
     if cfg.renderer == "sweep":
-        meta, s_dev, t_dev = upload(grid.values.device, plan.meta,
+        meta, s_dev, t_dev = upload(grid.device, plan.meta,
                                     plan.s_grid, plan.t_grid)
         ao, ao_scale, ao_offset = (fine_ao_field(grid) if use_ao_field
                                    else (None, 1.0, 0.0))
@@ -409,10 +457,10 @@ def _march(grid: BrickGrid, plan: SweepPlan, cfg: RenderConfig,
     return (*outs[:5], sh, args["s_grid"], args["t_grid"])
 
 
-def _sweep(grid: BrickGrid, plan: SweepPlan, cam: CameraParams,
+def _sweep(grid: AnyGrid, plan: SweepPlan, cam: CameraParams,
            cam_flow: CameraParams, cfg: RenderConfig,
            rp: RenderParams, use_ao_field: bool) -> torch.Tensor:
-    dev = grid.values.device
+    dev = grid.device
     W, H = cfg.width, cfg.height
     m_hit, frac, g_s, g_t, g_z, sh, s_dev, t_dev = _march(
         grid, plan, cfg, rp, use_ao_field)
@@ -496,20 +544,35 @@ def _sweep(grid: BrickGrid, plan: SweepPlan, cam: CameraParams,
     return frame
 
 
-def render_gbuffer_sweep(grid: BrickGrid, cam: CameraParams,
+def render_gbuffer_sweep(grid: AnyGrid, cam: CameraParams,
                          cam_flow: CameraParams, cfg: RenderConfig,
                          rp: "RenderParams | None" = None) -> torch.Tensor:
     """Sweep-rendered (H, W, 12) G-buffer on the grid's device; the
-    channel contract of the JAX package's `render_gbuffer`."""
+    channel contract of the JAX package's `render_gbuffer`.  A
+    `SparseBrickGrid` is refused where the JAX package refuses it: by any
+    renderer but "sweep_pallas", and with AO but from its packed field."""
     if cfg.renderer not in ("sweep", "sweep_pallas"):
         raise ValueError(f"unknown or unported renderer {cfg.renderer!r}")
-    has_baked = grid.ao_sh is not None
+    packed = isinstance(grid, SparseBrickGrid)
+    has_baked = (grid.ao_per_axis is not None if packed
+                 else grid.ao_sh is not None)
     use_ao_field = (cfg.ao_samples > 0 and has_baked
                     and cfg.ao_mode in ("auto", "volume"))
     if cfg.ao_mode == "volume" and cfg.ao_samples > 0 and not has_baked:
         raise ValueError("ao_mode='volume' needs a baked occlusion field; "
                          "call render.ao_sweep.attach_baked_ao(grid, "
-                         "isovalue, ao_radius)")
+                         "isovalue, ao_radius)"
+                         + (" before packing (SparseBrickGrid.from_brick_"
+                            "grid packs it per axis)" if packed else ""))
+    if packed and cfg.renderer != "sweep_pallas":
+        raise ValueError("SparseBrickGrid requires renderer='sweep_pallas' "
+                         "(the tiled atlas kernel); densify with "
+                         "grid.to_brick_grid() for the scan/march paths")
+    if packed and cfg.ao_samples > 0 and not use_ao_field:
+        raise ValueError("hemisphere-ray AO needs dense values; set "
+                         "ao_samples=0, bake AO before packing "
+                         "(attach_baked_ao + from_brick_grid), or densify "
+                         "with grid.to_brick_grid()")
     if cfg.ao_samples > 0 and not use_ao_field:
         raise NotImplementedError(
             "hemisphere-ray AO is not ported (ROADMAP.md, queue A): bake "

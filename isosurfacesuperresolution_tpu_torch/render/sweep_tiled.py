@@ -1,11 +1,13 @@
-"""The occupancy-gated tiled march (B2) and the tiled AO capture (B4).
+"""The occupancy-gated tiled march (B2, and B3 over packed storage) and
+the tiled AO capture (B4, and B4p over a packed field).
 
-Counterpart of the dense forms in the JAX package's
-`render/sweep_pallas_tiled.py` (`march_pallas_tiled`, `ao_capture_tiled`).
-The renderer takes this path for large volumes (`render/sweep.py`): the
-slice plane is cut into an (NTX, NTY) grid of (TX, TY) tiles, and the
-brick pyramid (`BrickGrid.brick_max`) decides per slice which tiles can
-hold the isosurface.
+Counterpart of the JAX package's `render/sweep_pallas_tiled.py`
+(`march_pallas_tiled`, `ao_capture_tiled`, and their packed forms
+`march_pallas_packed`, `ao_capture_packed`).  The renderer takes this path
+for large volumes and for every `volume/packed.SparseBrickGrid`
+(`render/sweep.py`): the slice plane is cut into an (NTX, NTY) grid of
+(TX, TY) tiles, and the brick pyramid (`BrickGrid.brick_max`) decides per
+slice which tiles can hold the isosurface.
 
 * `march_tiled` returns the flat march's ``m_hit, frac, g_s, g_t, g_z``
   (`render/sweep_march.py`), but a slice with no occupied tile (or a
@@ -17,16 +19,25 @@ hold the isosurface.
   uint8 fields are dequantized per channel inside, and a coarse field
   (``field_downsample`` > 1) is sampled natively.
 
+* `march_packed` is `march_tiled` over a `PackedAxisVolume`: a tap reads
+  ``atlas[slots[z, x / TX, y / TY]]`` at (x % TX, y % TY) for the two
+  planes z = zf, zf + 1, slot 0 being the background tile; the tiles are
+  the atlas's.
+* `ao_capture_packed` is `ao_capture_tiled` over a `PackedAOAxisVolume`
+  at full resolution: a tile pair is kept when its AO slot is non-zero on
+  plane zf or zf + 1 (no brick test, no dilation), with no dequant.
+
 Each wrapper launches its CUDA kernel (``csrc/sweep_march.cu``, through
-`march_tiled_kernel` and `ao_capture_tiled_kernel`, which count the
-launches) for CUDA tensors, runs its plain version (`march_tiled_plain`,
-`ao_capture_tiled_plain`) for CPU tensors and raises for any other
-device.  The plain versions build the JAX package's per-frame tables
-(`tile_occupancy`, `pair_tables`, `dilate_tiles`, `slice_has_hit`); the
+`march_tiled_kernel`, `ao_capture_tiled_kernel`, `march_packed_kernel`
+and `ao_capture_packed_kernel`, which count the launches) for CUDA
+tensors, runs its plain version (`march_tiled_plain` and so on) for CPU
+tensors and raises for any other device.  The plain versions build the
+JAX package's per-frame tables (`tile_occupancy`, `pair_tables`,
+`dilate_tiles`, `slice_has_hit`, the packed forms' `slot_rows`); the
 kernels read a `tile_table` instead, which depends only on the brick
-pyramid, the axis order and the tile, not on the camera: the renderer
+pyramid, the axis order and the tile, not on the camera (the renderer
 builds it once per grid, and a kernel compares a slice's row with the
-isovalue itself.
+isovalue itself), and the packed kernels read the slot table directly.
 """
 
 from __future__ import annotations
@@ -245,7 +256,20 @@ def ao_capture_tiled_plain(ao_zcxy: torch.Tensor, meta: torch.Tensor,
     TX, TY, occ, counts, meta = ao_tables(ao_zcxy.shape, meta, m_hit,
                                           brick_max_p, brick_size, iso, tile,
                                           fd)
-    field = _field_store(ao_zcxy, dtype)
+    return _capture_loop(_field_store(ao_zcxy, dtype), meta, s_grid, t_grid,
+                         Sn, Tn, m_hit, TX, TY, occ, counts, dtype,
+                         per_channel(ao_scale), per_channel(ao_offset), fd)
+
+
+def _capture_loop(field: torch.Tensor, meta: torch.Tensor,
+                  s_grid: torch.Tensor, t_grid: torch.Tensor, Sn: int,
+                  Tn: int, m_hit: torch.Tensor, TX: int, TY: int,
+                  occ: torch.Tensor, counts: torch.Tensor,
+                  dtype: torch.dtype, scales: Tuple[float, ...],
+                  offs: Tuple[float, ...], fd: int) -> torch.Tensor:
+    """The TPU capture kernel's loop over ``field`` (Z', 4, X', Y') for
+    the kept tile pairs ``occ`` (K, NTX, NTY) and their ``counts``, with
+    ``meta``'s z columns in the field's slabs."""
     _, _, X2, Y2 = field.shape
     NTY = Y2 // TY
     dev = field.device
@@ -253,7 +277,6 @@ def ao_capture_tiled_plain(ao_zcxy: torch.Tensor, meta: torch.Tensor,
     cnt = counts.cpu().tolist()
     occ_h = occ.flatten(1).cpu()
     inv_f = torch.tensor(1.0 / fd, dtype=_F32).item()
-    scales, offs = per_channel(ao_scale), per_channel(ao_offset)
     jx = torch.arange(X2, dtype=_F32, device=dev) + 0.5
     jy = torch.arange(Y2, dtype=_F32, device=dev) + 0.5
     sh = torch.zeros((4, Sn, Tn), dtype=_F32, device=dev)
@@ -476,3 +499,264 @@ def ao_capture_tiled_kernel(field: torch.Tensor, meta: torch.Tensor,
 
 
 ao_capture_tiled_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# packed storage: B3 and B4p
+# ---------------------------------------------------------------------------
+
+def slot_rows(slots: torch.Tensor, zfs: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's per-frame (K, P) slot rows: the atlas slot of
+    every tile (pair id xt * NTY + yt) of the planes zf and zf + 1 of each
+    slice (plane indices clipped to the volume)."""
+    Z = slots.shape[0]
+    flat = slots.reshape(Z, -1)
+    return (flat[torch.clamp(zfs, 0, Z - 1)],
+            flat[torch.clamp(zfs + 1, 0, Z - 1)])
+
+
+def _slot_planes(atlas: torch.Tensor, rows0: torch.Tensor,
+                 rows1: torch.Tensor, keep: torch.Tensor, zfs: torch.Tensor,
+                 Z: int) -> torch.Tensor:
+    """(Z, P, *tile) planes as the slot rows deliver them: tile p of
+    planes zf and zf + 1 of every slice that keeps pair p (``keep``
+    (K, NTX, NTY)) read from the atlas, zero elsewhere."""
+    K, P = rows0.shape
+    k, p = torch.nonzero(keep.reshape(K, P), as_tuple=True)
+    planes = torch.zeros((Z, P) + tuple(atlas.shape[1:]), dtype=atlas.dtype,
+                         device=atlas.device)
+    planes[torch.clamp(zfs, 0, Z - 1)[k], p] = atlas[rows0[k, p].long()]
+    planes[torch.clamp(zfs + 1, 0, Z - 1)[k], p] = atlas[rows1[k, p].long()]
+    return planes
+
+
+def march_packed_plain(packed_axis, meta: torch.Tensor,
+                       s_grid: torch.Tensor, t_grid: torch.Tensor, Sn: int,
+                       Tn: int, brick_max_p: torch.Tensor, brick_size: int,
+                       iso: float, dtype: torch.dtype = torch.bfloat16,
+                       scale: float = 1.0, offset: float = 0.0
+                       ) -> Tuple[torch.Tensor, ...]:
+    """B3's function as the JAX package builds it per frame: the brick
+    occupancy of the atlas's tiles (`tile_occupancy`, `pair_tables`) and
+    the (K, P) slot rows (`slot_rows`); each working slice's occupied
+    tiles are read from the atlas through its rows, and B2's plain loop
+    marches them (the rows are indexed by pair id, not compacted)."""
+    Z, X, Y = packed_axis.shape
+    TX, TY = packed_axis.tile_shape
+    zfs = meta[:, 2].long()
+    occ = tile_occupancy(brick_max_p, brick_size, zfs, iso, X, Y, TX, TY)
+    occ, counts, _ = pair_tables(occ, meta)
+    rows0, rows1 = slot_rows(packed_axis.slots, zfs)
+    vol = (_slot_planes(packed_axis.atlas, rows0, rows1, occ, zfs, Z)
+           .reshape(Z, X // TX, Y // TY, TX, TY).permute(0, 1, 3, 2, 4)
+           .reshape(Z, X, Y))
+    meta = meta.clone()
+    meta[:, 4] = (counts > 0).to(_F32)
+    return sm.march_plain(vol, meta, s_grid, t_grid, Sn, Tn, dtype, scale,
+                          offset, occ=occ, tile=(TX, TY))
+
+
+def ao_packed_tables(packed_ao, meta: torch.Tensor, m_hit: torch.Tensor):
+    """B4p's per-frame tables as the JAX package builds them: the AO
+    atlas's tile sizes, the kept pairs (on a do-slice with a hit, the
+    pair's slot is non-zero on plane zf or zf + 1), their counts, and the
+    (K, P) slot rows."""
+    _, X, Y = packed_ao.shape
+    TX, TY = packed_ao.tile_shape
+    K = meta.shape[0]
+    rows0, rows1 = slot_rows(packed_ao.slots, meta[:, 2].long())
+    occ = ((rows0 > 0) | (rows1 > 0)).reshape(K, X // TX, Y // TY)
+    occ, counts, _ = pair_tables(
+        occ & slice_has_hit(m_hit, K)[:, None, None], meta)
+    return TX, TY, occ, counts, rows0, rows1
+
+
+def ao_capture_packed_plain(packed_ao, meta: torch.Tensor,
+                            s_grid: torch.Tensor, t_grid: torch.Tensor,
+                            Sn: int, Tn: int, m_hit: torch.Tensor,
+                            dtype: torch.dtype = torch.bfloat16
+                            ) -> torch.Tensor:
+    """B4p's function as the JAX package builds it per frame
+    (`ao_packed_tables`): the kept tiles come from the atlas (in
+    ``dtype``) through the slot rows, and B4's loop sums them at full
+    resolution with scale 1 and offset 0."""
+    Z, X, Y = packed_ao.shape
+    TX, TY, occ, counts, rows0, rows1 = ao_packed_tables(packed_ao, meta,
+                                                         m_hit)
+    zfs = meta[:, 2].long()
+    sm._store_dtype(packed_ao.atlas, dtype)    # checks the resample type
+    field = (_slot_planes(packed_ao.atlas.to(dtype), rows0, rows1, occ, zfs,
+                          Z)
+             .reshape(Z, X // TX, Y // TY, 4, TX, TY)
+             .permute(0, 3, 1, 4, 2, 5).reshape(Z, 4, X, Y))
+    return _capture_loop(field, meta, s_grid, t_grid, Sn, Tn, m_hit, TX, TY,
+                         occ, counts, dtype, (1.0,) * 4, (0.0,) * 4, 1)
+
+
+def kernel_atlas(packed, store: torch.dtype) -> torch.Tensor:
+    """A packed volume's or field's atlas as its kernel reads it:
+    contiguous, in ``store``; a cast is made once and kept in
+    ``packed.derived``.  (A uint8 density atlas stays uint8.)"""
+    atlas = packed.atlas
+    if atlas.dtype == store and atlas.is_contiguous():
+        return atlas
+    key = ("atlas", store)
+    out = packed.derived.get(key)
+    if out is None:
+        out = packed.derived[key] = torch.empty(
+            atlas.shape, dtype=store, device=atlas.device).copy_(atlas)
+    return out
+
+
+def _check_slots(packed, dev: torch.device) -> torch.Tensor:
+    Z, X, Y = packed.shape
+    TX, TY = packed.tile_shape
+    slots = packed.slots
+    shape = (Z, X // TX, Y // TY)
+    if (Z < 2 or X % TX or Y % TY or tuple(slots.shape) != shape
+            or slots.dtype != torch.int32 or slots.device != dev
+            or not slots.is_contiguous()):
+        raise ValueError(f"slots must be a contiguous int32 {shape} table on "
+                         f"{dev} (Z >= 2, tiles {(TX, TY)} dividing "
+                         f"{(X, Y)}), got {slots.dtype} "
+                         f"{tuple(slots.shape)} on {slots.device}")
+    return slots
+
+
+def march_packed(packed_axis, meta: torch.Tensor, s_grid: torch.Tensor,
+                 t_grid: torch.Tensor, Sn: int, Tn: int,
+                 brick_max_p: torch.Tensor, brick_size: int, iso: float,
+                 dtype: torch.dtype = torch.bfloat16, scale: float = 1.0,
+                 offset: float = 0.0, table: "torch.Tensor | None" = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Run the packed march: the CUDA kernel (`march_packed_kernel`) for
+    CUDA tensors, `march_packed_plain` for CPU tensors.  ``packed_axis`` is
+    the `PackedAxisVolume` of the march's axis order, the other arguments
+    `march_tiled`'s; ``table`` is the `tile_table` of the atlas's tiles,
+    made here when not given."""
+    if _device(packed_axis.atlas, "march_packed").type == "cpu":
+        return march_packed_plain(packed_axis, meta, s_grid, t_grid, Sn, Tn,
+                                  brick_max_p, brick_size, iso, dtype, scale,
+                                  offset)
+    dev = packed_axis.atlas.device
+    _packed_fn()                # raises when the library cannot be built
+    slots = _check_slots(packed_axis, dev)
+    atlas = kernel_atlas(packed_axis,
+                         sm._store_dtype(packed_axis.atlas, dtype))
+    meta, s_grid, t_grid = sm.check_tables(dev, meta, s_grid, t_grid, Sn, Tn)
+    if brick_max_p.device != dev:
+        raise ValueError(f"brick_max_p is on {brick_max_p.device}, the "
+                         f"atlas on {dev}")
+    _, X, Y = packed_axis.shape
+    TX, TY = packed_axis.tile_shape
+    if table is None:
+        table = tile_table(brick_max_p, brick_size, X, Y, TX, TY)
+    table = _check_table(table, brick_max_p, brick_size,
+                         (X // TX) * (Y // TY), dev)
+    return march_packed_kernel(atlas, slots, meta, s_grid, t_grid, Sn, Tn,
+                               table, iso, dtype, scale, offset)
+
+
+def _packed_fn():
+    return _kernel("sweep_march_packed",
+                   [_P, _I, _I, _P, _P, _P, _P, _P] + [_I] * 11
+                   + [_F, _F, _F] + [_P] * 6)
+
+
+def march_packed_kernel(atlas: torch.Tensor, slots: torch.Tensor,
+                        meta: torch.Tensor, s_grid: torch.Tensor,
+                        t_grid: torch.Tensor, Sn: int, Tn: int,
+                        table: torch.Tensor, iso: float, dtype: torch.dtype,
+                        scale: float, offset: float
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Launch B3 on inputs `march_packed` prepared: the contiguous
+    (N, TX, TY) atlas from `kernel_atlas`, the contiguous int32
+    (Z, NTX, NTY) slots, checked tables and the (rows, P + 1) `tile_table`
+    of the atlas's tiles.  ``march_packed_kernel.launches`` counts
+    launches."""
+    fn = _packed_fn()
+    dev = atlas.device
+    K = meta.shape[0]
+    Z, NTX, NTY = slots.shape
+    _, TX, TY = atlas.shape
+    outs = [torch.empty((Sn, Tn), dtype=_F32, device=dev) for _ in range(5)]
+    err = fn(atlas.data_ptr(), sm._STORE_CODES[atlas.dtype],
+             int(dtype == torch.bfloat16), slots.data_ptr(), meta.data_ptr(),
+             s_grid.data_ptr(), t_grid.data_ptr(), table.data_ptr(),
+             table.shape[0], K, Z, NTX * TX, NTY * TY, Sn, Tn,
+             table.shape[1] - 1, TX, TY, NTY, _iso32(iso), float(scale),
+             float(offset), *(o.data_ptr() for o in outs),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sweep_march_packed launch failed: CUDA error "
+                           f"{err}")
+    march_packed_kernel.launches += 1
+    return tuple(outs)
+
+
+march_packed_kernel.launches = 0
+
+
+def ao_capture_packed(packed_ao, meta: torch.Tensor, s_grid: torch.Tensor,
+                      t_grid: torch.Tensor, Sn: int, Tn: int,
+                      m_hit: torch.Tensor,
+                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Run the packed AO capture: the CUDA kernel
+    (`ao_capture_packed_kernel`) for CUDA tensors,
+    `ao_capture_packed_plain` for CPU tensors.  ``packed_ao`` is the
+    `PackedAOAxisVolume` of the march's axis order, ``meta`` the march's
+    slice table and ``m_hit`` its (Sn, Tn) output.  Returns sh
+    (4, Sn, Tn) float32, 0 where there is no hit."""
+    if _device(packed_ao.atlas, "ao_capture_packed").type == "cpu":
+        return ao_capture_packed_plain(packed_ao, meta, s_grid, t_grid, Sn,
+                                       Tn, m_hit, dtype)
+    dev = packed_ao.atlas.device
+    _ao_packed_fn()             # raises when the library cannot be built
+    slots = _check_slots(packed_ao, dev)
+    sm._store_dtype(packed_ao.atlas, dtype)    # checks the resample type
+    atlas = kernel_atlas(packed_ao, dtype)
+    if atlas.dim() != 4 or atlas.shape[1] != 4:
+        raise ValueError(f"the AO atlas must be (N, 4, TX, TY), got "
+                         f"{tuple(atlas.shape)}")
+    meta, s_grid, t_grid = sm.check_tables(dev, meta, s_grid, t_grid, Sn, Tn)
+    if m_hit.device != dev:
+        raise ValueError(f"m_hit is on {m_hit.device}, the atlas on {dev}")
+    if tuple(m_hit.shape) != (Sn, Tn) or m_hit.dtype != _F32:
+        raise ValueError(f"m_hit must be float32 {(Sn, Tn)}")
+    return ao_capture_packed_kernel(atlas, slots, meta, s_grid, t_grid,
+                                    m_hit.contiguous(), dtype)
+
+
+def _ao_packed_fn():
+    return _kernel("ao_capture_packed",
+                   [_P, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P])
+
+
+def ao_capture_packed_kernel(atlas: torch.Tensor, slots: torch.Tensor,
+                             meta: torch.Tensor, s_grid: torch.Tensor,
+                             t_grid: torch.Tensor, m_hit: torch.Tensor,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """Launch B4p on inputs `ao_capture_packed` prepared: the contiguous
+    (N, 4, TX, TY) atlas in ``dtype`` from `kernel_atlas`, the contiguous
+    int32 (Z, NTX, NTY) slots, the march's ``meta`` and contiguous
+    ``m_hit``.  ``ao_capture_packed_kernel.launches`` counts launches."""
+    fn = _ao_packed_fn()
+    dev = atlas.device
+    K = meta.shape[0]
+    Sn, Tn = m_hit.shape
+    Z, NTX, NTY = slots.shape
+    _, _, TX, TY = atlas.shape
+    sh = torch.empty((4, Sn, Tn), dtype=_F32, device=dev)
+    err = fn(atlas.data_ptr(), int(dtype == torch.bfloat16), slots.data_ptr(),
+             meta.data_ptr(), s_grid.data_ptr(), t_grid.data_ptr(),
+             m_hit.data_ptr(), K, Z, NTX * TX, NTY * TY, Sn, Tn, TX, TY,
+             sh.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ao_capture_packed launch failed: CUDA error "
+                           f"{err}")
+    ao_capture_packed_kernel.launches += 1
+    return sh
+
+
+ao_capture_packed_kernel.launches = 0

@@ -19,6 +19,9 @@ Counterpart of the JAX package's `volume/grid.py`:
 * ``derived``: device tables derived from the fields above and built at
   first use (the tiled renderer's tile tables); not an init argument, so
   `dataclasses.replace` starts a new grid with none.
+
+`GridTransform` holds what `BrickGrid` shares with the packed
+`volume/packed.SparseBrickGrid`: the world transform and the dequant.
 """
 
 from __future__ import annotations
@@ -36,22 +39,10 @@ from isosurfacesuperresolution_tpu_torch.device import (
 DEFAULT_BRICK_SIZE = 8
 
 
-@dataclasses.dataclass
-class BrickGrid:
-    values: torch.Tensor
-    bbox_min: torch.Tensor
-    bbox_max: torch.Tensor
-    brick_min: Optional[torch.Tensor] = None
-    brick_max: Optional[torch.Tensor] = None
-    brick_size: int = DEFAULT_BRICK_SIZE
-    value_scale: float = 1.0
-    value_offset: float = 0.0
-    ao_sh: Optional[torch.Tensor] = None
-    ao_scale: Union[float, Tuple[float, ...]] = 1.0
-    ao_offset: Union[float, Tuple[float, ...]] = 0.0
-    ao_downsample: int = 1
-    derived: dict = dataclasses.field(default_factory=dict, init=False,
-                                      repr=False, compare=False)
+class GridTransform:
+    """The world transform and dequant of a grid with ``resolution``
+    (X, Y, Z), host ``bbox_min`` / ``bbox_max`` and ``value_scale`` /
+    ``value_offset``."""
 
     def dequant(self, stored: torch.Tensor) -> torch.Tensor:
         """Stored-type values -> physical float32 densities."""
@@ -61,10 +52,6 @@ class BrickGrid:
         if self.value_offset != 0.0:
             x = x + self.value_offset
         return x
-
-    @property
-    def resolution(self) -> Tuple[int, int, int]:
-        return tuple(self.values.shape)
 
     @property
     def voxel_size(self) -> torch.Tensor:
@@ -86,6 +73,32 @@ class BrickGrid:
         span = (self.bbox_max - self.bbox_min).tolist()
         return torch.stack([v[..., i] / float(r) * span[i] + lo[i]
                             for i, r in enumerate(self.resolution)], -1)
+
+
+@dataclasses.dataclass
+class BrickGrid(GridTransform):
+    values: torch.Tensor
+    bbox_min: torch.Tensor
+    bbox_max: torch.Tensor
+    brick_min: Optional[torch.Tensor] = None
+    brick_max: Optional[torch.Tensor] = None
+    brick_size: int = DEFAULT_BRICK_SIZE
+    value_scale: float = 1.0
+    value_offset: float = 0.0
+    ao_sh: Optional[torch.Tensor] = None
+    ao_scale: Union[float, Tuple[float, ...]] = 1.0
+    ao_offset: Union[float, Tuple[float, ...]] = 0.0
+    ao_downsample: int = 1
+    derived: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
+
+    @property
+    def resolution(self) -> Tuple[int, int, int]:
+        return tuple(self.values.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
 
     def brick_max_at(self, vox: torch.Tensor) -> torch.Tensor:
         """Max value of the brick holding voxel coordinate (..., 3); -inf

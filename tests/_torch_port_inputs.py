@@ -159,3 +159,37 @@ def assert_bf16_render_close(got, ref, both, eye) -> None:
         assert d[i, j].max() < BF16_FLIP_TOL, (i, j, d[i, j])
         d[i, j] = 0.0
     assert d.max() < BF16_TOL, d.reshape(-1, d.shape[-1]).max(0)
+
+
+# ---------------------------------------------------------------------------
+# Packed storage: the tiled inputs with background tiles
+# ---------------------------------------------------------------------------
+
+def make_packed_inputs(store: str, seed: int = 0):
+    """`make_tiled_inputs` with background tiles (stored 0) in the volume:
+    x-tile 1 / y-tile 0 on every plane (a tile the bricks cull as well),
+    x-tile 0 / y-tile 0 on planes 9 and 10 (tiles the bricks, made from
+    the volume before, keep: they read background), and, in float
+    storage, x-tile 1 / y-tile 1 of plane 13 set to 5e-4 (dropped by a
+    packing tolerance of 1e-3).  Same return as `make_tiled_inputs`."""
+    vol, meta, sg, tg, scale, offset, bmax, iso = make_tiled_inputs(store,
+                                                                    seed)
+    vol = vol.copy()
+    vol[:, TILE:, :TILE] = 0
+    vol[9:11, :TILE, :TILE] = 0
+    if store != "uint8":
+        vol[13, TILE:, TILE:] = 5e-4
+    return vol, meta, sg, tg, scale, offset, bmax, iso
+
+
+def make_packed_ao_field(seed: int = 2):
+    """`make_tiled_ao_field` (float32) with zero tiles of 8: x-tile 0 on
+    every plane, y-tile 2 on planes up to 8 (beside hits whose lower
+    plane is 8), and x-tile 3 / y-tile 1 of plane 9 at 2e-4 (dropped by
+    the packing tolerance of 1e-3)."""
+    field, _, _ = make_tiled_ao_field(1, seed=seed)
+    field = field.copy()
+    field[:, :, :8] = 0.0
+    field[:9, :, :, 16:24] = 0.0
+    field[9, :, 24:32, 8:16] = 2e-4
+    return field

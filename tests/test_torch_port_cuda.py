@@ -13,8 +13,11 @@ from isosurfacesuperresolution_tpu_torch.ops import phase_conv as pc
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
 from isosurfacesuperresolution_tpu_torch.render import sweep_tiled as PT
 
+from isosurfacesuperresolution_tpu_torch.volume import packed as PP
+
 from _torch_port_inputs import (CASES, SN, TILE, TN, TSN, TTN, make_ao_field,
-                                make_inputs, make_tiled_ao_field,
+                                make_inputs, make_packed_ao_field,
+                                make_packed_inputs, make_tiled_ao_field,
                                 make_tiled_inputs)
 
 
@@ -161,6 +164,81 @@ def test_ao_capture_tiled_kernel_matches_plain(field, fd, mm):
     hit = m_hit.numpy() >= 0
     got = got.cpu().numpy()
     assert (got[:, ~hit] == 0).all() and (want.numpy()[:, hit] != 0).all()
+    # the same per-pair sums in the same order: float32 within rounding
+    # (1e-6); bf16 within one bf16 step of a term (2^-8 relative)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-6,
+                               rtol=0 if mm == "float32" else 2.0 ** -8)
+
+
+def _packed_case(store, tol):
+    vol, meta, sg, tg, scale, offset, bmax, iso = make_packed_inputs(store)
+    pa = PP.pack_axis(torch.from_numpy(vol).cuda(), tile=TILE,
+                      tolerance=tol)
+    args = [torch.from_numpy(a).cuda() for a in (meta, sg, tg)]
+    return vol, pa, args, torch.from_numpy(bmax).cuda(), scale, offset, iso
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store,mm", CASES)
+def test_march_packed_kernel_matches_plain(store, mm):
+    """f32, bf16 and uint8 atlases; float ones packed with a tolerance."""
+    _need_card()
+    _, pa, args, bm, scale, offset, iso = _packed_case(
+        store, 0.0 if store == "uint8" else 1e-3)
+    kw = dict(dtype=getattr(torch, mm), scale=scale, offset=offset)
+    before = PT.march_packed_kernel.launches
+    got = PT.march_packed(pa, *args, TSN, TTN, bm, 8, iso, **kw)
+    torch.cuda.synchronize()
+    assert PT.march_packed_kernel.launches == before + 1
+    cpu = PP.PackedAxisVolume(pa.atlas.cpu(), pa.slots.cpu(),
+                              pa.slice_max.cpu(), pa.shape)
+    want = PT.march_packed_plain(cpu, *[a.cpu() for a in args], TSN, TTN,
+                                 bm.cpu(), 8, iso, **kw)
+    # same operands rounded at the same points; float32 sums of two taps
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    assert (want[0].numpy() >= 0).mean() > 0.5
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store,mm", CASES)
+def test_march_packed_kernel_lossless_equals_tiled_kernel(store, mm):
+    """On a lossless packing B3 reads the values B2 reads, in the same
+    order: bit for bit."""
+    _need_card()
+    vol, pa, args, bm, scale, offset, iso = _packed_case(store, 0.0)
+    kw = dict(dtype=getattr(torch, mm), scale=scale, offset=offset)
+    got = PT.march_packed(pa, *args, TSN, TTN, bm, 8, iso, **kw)
+    want = PT.march_tiled(torch.from_numpy(vol).cuda(), *args, TSN, TTN, bm,
+                          8, iso, tile=TILE, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+def test_ao_capture_packed_kernel_matches_plain(mm):
+    _need_card()
+    vol, meta, sg, tg, scale, offset, bmax, iso = make_packed_inputs("uint8")
+    cpu = [torch.from_numpy(a) for a in (meta, sg, tg)]
+    m_hit = PT.march_packed_plain(
+        PP.pack_axis(torch.from_numpy(vol), tile=TILE), *cpu, TSN, TTN,
+        torch.from_numpy(bmax), 8, iso, scale=scale, offset=offset)[0]
+    pao = PP.pack_ao_axis(torch.from_numpy(make_packed_ao_field()), tile=8)
+    gpu = PP.PackedAOAxisVolume(pao.atlas.cuda(), pao.slots.cuda(),
+                                pao.shape)
+    before = PT.ao_capture_packed_kernel.launches
+    got = PT.ao_capture_packed(gpu, *[a.cuda() for a in cpu], TSN, TTN,
+                               m_hit.cuda(), dtype=getattr(torch, mm))
+    torch.cuda.synchronize()
+    assert PT.ao_capture_packed_kernel.launches == before + 1
+    want = PT.ao_capture_packed_plain(pao, *cpu, TSN, TTN, m_hit,
+                                      dtype=getattr(torch, mm))
+    hit = m_hit.numpy() >= 0
+    got = got.cpu().numpy()
+    assert (got[:, ~hit] == 0).all() and (want.numpy()[:, hit] != 0).any()
     # the same per-pair sums in the same order: float32 within rounding
     # (1e-6); bf16 within one bf16 step of a term (2^-8 relative)
     np.testing.assert_allclose(got, want.numpy(), atol=1e-6,

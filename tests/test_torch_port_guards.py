@@ -1,6 +1,6 @@
 """Guards of the port: it imports nothing of JAX or the JAX package, its
-entry points run on the card unless asked for the CPU, and the march
-wrapper never falls back from a CUDA request to the plain version."""
+entry points run on the card unless asked for the CPU, and the kernel
+wrappers never fall back from a CUDA request to the plain version."""
 
 import os
 import subprocess
@@ -20,6 +20,8 @@ from isosurfacesuperresolution_tpu_torch.ops import phase_conv
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
 from isosurfacesuperresolution_tpu_torch.render import sweep_tiled
 from isosurfacesuperresolution_tpu_torch.volume import analytic
+from isosurfacesuperresolution_tpu_torch.volume.packed import (
+    PackedAOAxisVolume, PackedAxisVolume, SparseBrickGrid)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +41,8 @@ print(bad)
 """
 
 NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
-               "render.ao_sweep", "render.sweep_tiled", "volume.grid")
+               "render.ao_sweep", "render.sweep_tiled", "volume.grid",
+               "volume.packed")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -49,7 +52,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     names = names.split()
-    assert len(names) >= 24          # every module of the port was imported
+    assert len(names) >= 32          # every module of the port was imported
     for mod in NEW_MODULES:
         assert f"isosurfacesuperresolution_tpu_torch.{mod}" in names
     assert bad == "[]"
@@ -125,6 +128,8 @@ def _no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(sweep_tiled, "_FNS", {})
     monkeypatch.setattr(sweep_tiled, "march_tiled_plain", plain)
     monkeypatch.setattr(sweep_tiled, "ao_capture_tiled_plain", plain)
+    monkeypatch.setattr(sweep_tiled, "march_packed_plain", plain)
+    monkeypatch.setattr(sweep_tiled, "ao_capture_packed_plain", plain)
 
 
 def _tiled_args(device):
@@ -168,6 +173,76 @@ def test_tiled_kernels_refuse_other_devices():
         sweep_tiled.ao_capture_tiled(
             torch.empty((2, 4, 16, 8), device="meta"), *args[1:6],
             torch.empty((7, 3), device="meta"), *args[6:])
+
+
+def _packed(device):
+    """Fake packed volume and AO field on ``device``: (4, 32, 16) in
+    tiles of (16, 8)."""
+    slots = torch.empty((4, 2, 2), dtype=torch.int32, device=device)
+    return (PackedAxisVolume(torch.empty((3, 16, 8), dtype=torch.uint8,
+                                         device=device), slots,
+                             torch.empty(4, device=device), (4, 32, 16)),
+            PackedAOAxisVolume(torch.empty((3, 4, 16, 8), device=device),
+                               slots, (4, 32, 16)))
+
+
+def test_march_packed_raises_for_cuda_request_without_library(monkeypatch,
+                                                              tmp_path):
+    _no_library(monkeypatch, tmp_path)
+    before = sweep_tiled.march_packed_kernel.launches
+    with FakeTensorMode():
+        pa, _ = _packed("cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            sweep_tiled.march_packed(pa, *_tiled_args("cuda")[1:])
+    assert sweep_tiled.march_packed_kernel.launches == before
+
+
+def test_ao_capture_packed_raises_for_cuda_request_without_library(
+        monkeypatch, tmp_path):
+    _no_library(monkeypatch, tmp_path)
+    before = sweep_tiled.ao_capture_packed_kernel.launches
+    with FakeTensorMode():
+        _, pao = _packed("cuda")
+        _, meta, sg, tg, Sn, Tn, *_ = _tiled_args("cuda")
+        m_hit = torch.empty((Sn, Tn), device="cuda")
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            sweep_tiled.ao_capture_packed(pao, meta, sg, tg, Sn, Tn, m_hit)
+    assert sweep_tiled.ao_capture_packed_kernel.launches == before
+
+
+def test_packed_kernels_refuse_other_devices():
+    pa, pao = _packed("meta")
+    args = _tiled_args("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sweep_tiled.march_packed(pa, *args[1:])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sweep_tiled.ao_capture_packed(pao, *args[1:6],
+                                      torch.empty((7, 3), device="meta"))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_grid_device_is_where_its_tensors_live(device):
+    """`BrickGrid.device` and `SparseBrickGrid.device`, which the entry
+    points read for either grid."""
+    grid = analytic.sphere_volume(8, device="cpu")
+    sparse = SparseBrickGrid.from_brick_grid(grid, tile=4)
+    assert grid.device == sparse.device == torch.device("cpu")
+    moved = SparseBrickGrid(
+        per_axis=(_packed(device)[0],) * 3, brick_min=grid.brick_min,
+        brick_max=grid.brick_max, bbox_min=grid.bbox_min,
+        bbox_max=grid.bbox_max, resolution=(16, 32, 4))
+    assert moved.device == torch.device(device)
+
+
+def test_fused_frame_refuses_a_packed_grid_on_another_device():
+    sparse = SparseBrickGrid.from_brick_grid(
+        analytic.sphere_volume(8, device="cpu"), tile=4)
+    frame = pipeline.FusedFrame(None, Config(), RenderConfig(),
+                                upscale_mode="bilinear", device="meta")
+    state = pipeline.FrameState(torch.empty(0), False)
+    with pytest.raises(ValueError, match="grid is on cpu, the frame runs "
+                                         "on meta"):
+        frame(sparse, None, None, state)
 
 
 def test_march_ao_raises_for_cuda_request_without_library(monkeypatch,
