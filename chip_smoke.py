@@ -57,13 +57,28 @@ seconds; any failure ends the run with a non-zero exit code:
    `InferencePipeline`, 20 frames, and the device time of copies per
    frame beside the dense grid's (`torch.profiler`, 5 frames each);
 17. card vs CPU on three chained small packed frames (48^3 blobs, tiles
-   of 16, a packed full-res AO field).
+   of 16, a packed full-res AO field);
+18. the 3x3 conv kernels at full width, each vs its plain version with
+   stated bounds, its time and cuDNN's (`F.conv2d` bf16, channels-last)
+   for the same conv: the 128-lane conv (B6) on run00017's composed post3
+   planar kernel at (1, 540, 960, 256) and on block0_conv1 padded to 128
+   lanes at (1, 270, 480, 128), `conv3x3_packed` with block0_conv1 at
+   (1, 270, 480, 64), the pixel-pair packed conv (B7) on each of
+   run00017's 20 trunk kernels at (1, 270, 240, 128) and the 20-conv B7
+   chain of `profile_convs` beside a cuDNN chain; then the path of these
+   entry points (`ops.conv3x3` at both shapes, `conv3x3_packed`, the B7
+   chain on the trunk kernels) with its launches counted;
+19. the frames `bench.py --int8` times: run00017 in bf16 with
+   `planar_int8` through `InferencePipeline`, 20 frames, then the float
+   bf16 frame at the same cameras for the difference int8 makes;
+20. card vs CPU on three chained small int8 frames and on small frames of
+   run00017 with `use_sn`.
 
-In phases 4, 6, 7, 10, 11, 15 and 16 the launch counts are zeroed just
-before each run and read just after it, and frames 3 onwards must make no
-host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line of kernel numbers,
-the card line, and last the device line.  Float32 matmuls and
-convolutions run without TF32 throughout
+In phases 4, 6, 7, 10, 11, 15, 16, 18 and 19 the launch counts are zeroed
+just before each run and read just after it, and frames 3 onwards must
+make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
+of kernel numbers, the card line, and last the device line.  Float32
+matmuls and convolutions run without TF32 throughout
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`).
 """
@@ -101,6 +116,9 @@ PACKED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
                    "sweep_pallas_tiled.py:705")
 AO_PACKED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
                       "sweep_pallas_tiled.py:631")
+CONV_SOURCE = f"{PKG}/csrc/conv3x3.cu"
+P128_REPLACES = "isosurfacesuperresolution_tpu/ops/pallas_conv.py:35"
+PACKED_CONV_REPLACES = "isosurfacesuperresolution_tpu/ops/packed_conv.py:80"
 # bounds of the march comparison: both round the same operands at the same
 # points; float32 sums may differ in the last place, which can move a
 # crossing where F is within rounding of the isovalue
@@ -204,6 +222,40 @@ def phase_bound_ms(H: int, W: int, out_elem: int) -> tuple:
     t_ops = flops / BF16_TC_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_bound_ms(h: int, w: int, cin: int, cout: int,
+                  out_elem: int) -> tuple:
+    """Least time for a 3x3 conv on the card: 2 * h * w * cin * cout * 9
+    bf16 tensor-core operations, and its bytes (bf16 input and weights,
+    float32 bias read once, the output written once)."""
+    flops = 2.0 * h * w * cin * cout * 9
+    nbytes = (h * w * cin * 2 + 9 * cin * cout * 2 + cout * 4
+              + h * w * cout * out_elem)
+    t_ops = flops / BF16_TC_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_conv(tag: str, got, want) -> float:
+    """Hold a conv kernel's output against its plain version's: exact
+    bf16 products, float32 sums in another order (1e-5 of the output's
+    scale), and a bf16 output may round the other way (one step, 2^-7 of
+    the value).  Raises out of bounds; returns the largest difference."""
+    import torch
+    bf16_out = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    tol = 1e-5 * float(want.abs().max())
+    ok = bool((d <= tol + (2.0 ** -7 * want.abs() if bf16_out else 0.0))
+              .all())
+    log(f"[{tag}] max |diff| {float(d.max()):.3g}, output max "
+        f"{float(want.abs().max()):.3g}; bound 1e-5 x output max"
+        + (" + one bf16 step (2^-7 |ref|)" if bf16_out else "")
+        + f": {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError(f"{tag} disagrees with its plain version")
+    return float(d.max())
 
 
 def tiled_bound_ms(args: dict, outs, tables, shape, elem: int,
@@ -490,6 +542,11 @@ def main() -> int:
         LoadedModel)
     from isosurfacesuperresolution_tpu_torch.infer.pipeline import (
         FusedFrame, InferencePipeline, initial_state)
+    from isosurfacesuperresolution_tpu_torch import ops as port_ops
+    from isosurfacesuperresolution_tpu_torch import profile_convs
+    from isosurfacesuperresolution_tpu_torch.infer import planar as planar_mod
+    from isosurfacesuperresolution_tpu_torch.ops import packed_conv as pk
+    from isosurfacesuperresolution_tpu_torch.ops import pallas_conv as p128
     from isosurfacesuperresolution_tpu_torch.ops import phase_conv as pc
     from isosurfacesuperresolution_tpu_torch.render import sweep_march
     from isosurfacesuperresolution_tpu_torch.render import sweep_tiled
@@ -515,7 +572,9 @@ def main() -> int:
                 "sweep_march_packed": (sweep_tiled.march_packed_kernel,
                                        "launches"),
                 "ao_capture_packed": (sweep_tiled.ao_capture_packed_kernel,
-                                      "launches")}
+                                      "launches"),
+                "conv3x3_p128": (p128.conv3x3_p128_kernel, "launches"),
+                "packed_conv3x3": (pk.packed_conv3x3_kernel, "launches")}
     frame_cfg = RenderConfig(width=480, height=270, isovalue=0.5,
                              ao_samples=0, renderer="sweep_pallas",
                              sweep_oversample=1.25, sweep_dtype="bfloat16")
@@ -1156,8 +1215,213 @@ def main() -> int:
         check_card_vs_cpu("packed 48^3, tiles 16, packed AO", outs, True)
         lm15.model.to("cuda")
 
-    log(f"launches over the main-path runs of phases 4, 6, 7, 10, 11, 15 "
-        f"and 16: {path_launches}")
+    bf16 = torch.bfloat16
+    with phase("18 the 3x3 conv kernels B6 and B7 at full width"):
+        sd = lm.model.state_dict()
+
+        def hwio(name):
+            return sd[f"{name}.weight"].permute(2, 3, 1, 0).contiguous()
+
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        # run00017's composed post3 kernel, the one the dense planar tail
+        # convolves, on F2's post-ReLU output at 540 x 960
+        k3c, b3c = planar_mod._tail_kernel(hwio("post3"), sd["post3.bias"])
+        x3 = torch.rand((1, 540, 960, 256), device="cuda", generator=gen
+                        ).to(bf16)
+        # the trunk at 270 x 480: 64 channels, zero-padded to 128 lanes for
+        # B6, pixel pairs packed for B7
+        x64 = torch.rand((1, 270, 480, 64), device="cuda", generator=gen
+                         ).to(bf16)
+        k0, b0 = hwio("block0_conv1"), sd["block0_conv1.bias"]
+        x128 = p128.pad_lanes(x64)
+        k128 = p128.pad_lanes(p128.pad_lanes(k0, axis=2), axis=3)
+        b128 = p128.pad_lanes(b0)
+        outs18 = {}
+        for tag, x, k, b in (("post3", x3, k3c, b3c),
+                             ("trunk", x128, k128, b128)):
+            _, h, w, cin = x.shape
+            cout = k.shape[3]
+            got = p128.conv3x3_pallas_p128(x, k, b, relu=True)
+            torch.cuda.synchronize()
+            want = p128.conv3x3_p128_plain(x, k, b, relu=True)
+            err = check_conv(f"conv3x3_p128 {tag}", got, want)
+            outs18[tag] = got
+            kb = k.to(bf16).contiguous()
+            bf = b.float().contiguous()
+            ms = time_cuda(lambda: p128.conv3x3_p128_kernel(
+                x, kb, bf, True, bf16), 7)
+            plain_ms = time_cuda(lambda: p128.conv3x3_p128_plain(
+                x, k, b, relu=True), 3)
+            xc = profile_convs.cudnn_input(x)
+            kc = profile_convs.cudnn_weight(k)
+            bc = b.to(bf16)
+            lib_ms = time_cuda(lambda: F.conv2d(xc, kc, bc, padding=1), 7)
+            bound, bound_by = conv_bound_ms(h, w, cin, cout, 2)
+            flops = 2.0 * h * w * cin * cout * 9
+            log(f"[conv3x3_p128 {tag}] ({h}, {w}) {cin} -> {cout}, bf16 out, "
+                f"ReLU: kernel {ms:.3f} ms (median of 7; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms "
+                f"(median of 3), bound {bound:.4f} ms by {bound_by}, "
+                f"library (F.conv2d bf16 channels-last with bias, no ReLU) "
+                f"{lib_ms:.3f} ms")
+            rows[f"conv3x3_p128 {tag}"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": lib_ms}
+            del got, want, xc, kc
+
+        got = p128.conv3x3_packed(x64, k0, b0, relu=True)
+        torch.cuda.synchronize()
+        want = torch.relu(p128.conv3x3_f32(
+            x64[0].float(), k0.to(bf16).float()) + b0)[None].to(bf16)
+        check_conv("conv3x3_packed block0_conv1", got, want)
+        outs18["packed"] = got
+
+        # B7 on each trunk kernel in turn (ReLU after conv1 as in the
+        # network), each launch held against its plain version on the
+        # same input
+        trunk = [(f"block{i}_conv{j}", j == 1)
+                 for i in range(m.num_residual_blocks) for j in (1, 2)]
+        xp0 = pk.pack_pairs(torch.rand((1, 270, 480, 64), device="cuda",
+                                       generator=gen).to(bf16))
+        y, b7_err, b7_outs = xp0, 0.0, []
+        for name, relu in trunk:
+            k, b = hwio(name), sd[f"{name}.bias"]
+            got = pk.packed_conv3x3(y, k, b, relu=relu)
+            torch.cuda.synchronize()
+            want = pk.packed_conv3x3_plain(y, k, b, relu=relu)
+            b7_err = max(b7_err, check_conv(f"packed_conv3x3 {name}", got,
+                                            want))
+            b7_outs.append(got)
+            y = got
+        kb, bf = k0.to(bf16).contiguous(), b0.float().contiguous()
+        ms = time_cuda(lambda: pk.packed_conv3x3_kernel(xp0, kb, bf, True,
+                                                        bf16), 7)
+        plain_ms = time_cuda(lambda: pk.packed_conv3x3_plain(
+            xp0, k0, b0, relu=True), 3)
+        xc = profile_convs.cudnn_input(pk.unpack_pairs(xp0))
+        kc = profile_convs.cudnn_weight(k0)
+        bc = b0.to(bf16)
+        lib_ms = time_cuda(lambda: F.conv2d(xc, kc, bc, padding=1), 7)
+        bound, bound_by = conv_bound_ms(270, 480, 64, 64, 2)
+        log(f"[packed_conv3x3] {len(trunk)} trunk kernels held; "
+            f"block0_conv1 at (270, 240, 128): kernel {ms:.4f} ms (median "
+            f"of 7; {2.0 * 270 * 480 * 64 * 64 * 9 / ms / 1e9:.1f} "
+            f"TFLOP/s), plain {plain_ms:.2f} ms (median of 3), bound "
+            f"{bound:.4f} ms by {bound_by}, library (F.conv2d bf16 "
+            f"channels-last with bias, no ReLU) {lib_ms:.4f} ms")
+        rows["packed_conv3x3"] = {"max_abs_err": b7_err, "ms": ms,
+                                  "plain_ms": plain_ms, "bound_ms": bound,
+                                  "bound_by": bound_by, "library_ms": lib_ms}
+        del xc, kc
+
+        # the 20-conv chain of profile_convs (profile_packed.py's inputs)
+        xr, ks, bz = profile_convs.packed_chain_inputs()
+        kbs = [k.to(bf16) for k in ks]
+        kcs = [profile_convs.cudnn_weight(k) for k in ks]
+        xrc = profile_convs.cudnn_input(xr)
+
+        def b7_chain():
+            y = pk.pack_pairs(xr)
+            for k in kbs:
+                y = pk.packed_conv3x3(y, k, bz, relu=True)
+            return y
+
+        def cudnn_chain():
+            y = xrc
+            for k in kcs:
+                y = torch.relu(F.conv2d(y, k, padding=1))
+            return y
+
+        chain_ms = time_cuda(b7_chain, 5)
+        cudnn_chain_ms = time_cuda(cudnn_chain, 5)
+        log(f"[packed_conv3x3] chain of 20 at (270, 480) 64 -> 64 with "
+            f"ReLU: B7 {chain_ms:.3f} ms, cuDNN (conv + ReLU, bf16 "
+            f"channels-last) {cudnn_chain_ms:.3f} ms (median of 5 each)")
+        del xr, ks, kbs, kcs, xrc
+
+        # the path: the entry points at these widths, launches counted
+        for holder, attr in counters.values():
+            setattr(holder, attr, 0)
+        y3 = port_ops.conv3x3(x3, k3c, b3c, relu=True)
+        y64 = port_ops.conv3x3(x64, k0, b0, relu=True)
+        yp = p128.conv3x3_packed(x64, k0, b0, relu=True)
+        y, chain = xp0, []
+        for name, relu in trunk:
+            y = pk.packed_conv3x3(y, hwio(name), sd[f"{name}.bias"],
+                                  relu=relu)
+            chain.append(y)
+        torch.cuda.synchronize()
+        launches = {k: getattr(h, a) for k, (h, a) in counters.items()}
+        log(f"[conv path] launches {launches}")
+        expect(launches, {"conv3x3_p128": 3,
+                          "packed_conv3x3": len(trunk)}, "conv path")
+        add(launches)
+        same = (torch.equal(y3, outs18["post3"])
+                and torch.equal(y64, outs18["trunk"][..., :64])
+                and torch.equal(yp, outs18["packed"])
+                and all(torch.equal(a, b) for a, b in zip(chain, b7_outs)))
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (y3, y64, yp, *chain))
+        log(f"[conv path] outputs equal the held launches' bit for bit: "
+            f"{same}; finite: {finite}")
+        if not (same and finite):
+            raise RuntimeError("the conv path's outputs differ from the "
+                               "held launches' or are not finite")
+        del x3, x64, x128, xp0, y3, y64, yp, chain, b7_outs, outs18, got
+        del want, y
+
+    with phase("19 bench --int8 frames: run00017 bf16 int8, 20 frames"):
+        cfg19 = Config(model=dataclasses.replace(
+            m, compute_dtype="bfloat16", planar_int8=True))
+        pipe = InferencePipeline(lm.model, cfg19, frame_cfg, device="cuda")
+        if not (pipe.use_planar and pipe._frame.planar_net.int8):
+            raise RuntimeError("the int8 planar engine did not run")
+        rgb8, launches = drive(lambda i: pipe.frame(grid, cam_at(0.03 * i)),
+                               20, "int8 bf16", counters)
+        check_rgb(rgb8, pipe.state.prev_high[..., 0:16] > 0.0,
+                  (1080, 1920, 3))
+        expect(launches, {"sweep_march": 20}, "int8 bf16")
+        add(launches)
+        log(f"[int8 bf16] launches per frame: "
+            + ", ".join(f"{k} {v / 20:g}" for k, v in launches.items() if v))
+        cfg_f = Config(model=dataclasses.replace(m, compute_dtype="bfloat16"))
+        pipe_f = InferencePipeline(lm.model, cfg_f, frame_cfg, device="cuda")
+        rgb_f, launches = drive(lambda i: pipe_f.frame(grid,
+                                                       cam_at(0.03 * i)),
+                                20, "planar bf16", counters)
+        expect(launches, {"sweep_march": 20}, "planar bf16")
+        add(launches)
+        d = (rgb8.float() - rgb_f.float()).abs()
+        log(f"[int8 bf16] frame 20 against the float bf16 frame at the same "
+            f"cameras: max |diff| {float(d.max()):.4f}, mean "
+            f"{float(d.mean()):.5f}, share > 0.05: "
+            f"{float((d > 0.05).float().mean()):.4f}; ms/frame int8 "
+            f"{FRAME_MS['int8 bf16']:.2f}, float bf16 "
+            f"{FRAME_MS['planar bf16']:.2f}")
+        del pipe, pipe_f, rgb8, rgb_f, d
+
+    with phase("20 small int8 and use_sn frames: card vs CPU"):
+        for tag, cfg in (
+                ("planar int8 bf16", Config(model=dataclasses.replace(
+                    m, compute_dtype="bfloat16", planar_int8=True))),
+                ("planar use_sn f32", Config(model=dataclasses.replace(
+                    m, use_sn=True)))):
+            outs = {}
+            for dev in ("cuda", "cpu"):
+                g = analytic.blobs_volume(64, num_blobs=8, device=dev)
+                ff = FusedFrame(lm.model.to(dev), cfg, small_cfg,
+                                planar="on", device=dev)
+                st = initial_state(cfg, small_cfg, planar="on", device=dev)
+                for i in range(3):
+                    rgb_s, fr_s, st = ff(g, cam_at(0.03 * i),
+                                         cam_at(0.03 * (i - 1)), st)
+                outs[dev] = (rgb_s.cpu(), fr_s.cpu())
+            lm.model.to("cuda")
+            check_card_vs_cpu(tag, outs, False)
+
+    log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
+        f"18 and 19: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),
@@ -1173,7 +1437,11 @@ def main() -> int:
             ("sweep_march_packed", MARCH_SOURCE, PACKED_REPLACES,
              rows["packed"]),
             ("ao_capture_packed", MARCH_SOURCE, AO_PACKED_REPLACES,
-             rows["ao_packed"])):
+             rows["ao_packed"]),
+            ("conv3x3_p128", CONV_SOURCE, P128_REPLACES,
+             rows["conv3x3_p128 post3"]),
+            ("packed_conv3x3", CONV_SOURCE, PACKED_CONV_REPLACES,
+             rows["packed_conv3x3"])):
         kernels_line.append({"name": name, "route": "cuda", "source": source,
                              "replaces": replaces,
                              "launches": path_launches[name], **row})

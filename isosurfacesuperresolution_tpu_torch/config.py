@@ -95,7 +95,8 @@ class ModelConfig:
     # planar engine: post3 through the phase-conv kernel
     # (`ops/phase_conv.py`); 64-feature nets only, others keep the dense tail
     planar_phase_tail: bool = False
-    # planar engine: int8 post-training quantization (not ported: raises)
+    # planar engine: int8 post-training quantization of the trunk blocks
+    # and post1-post3 (not with the phase tail)
     planar_int8: bool = False
 
 

@@ -43,6 +43,8 @@ from isosurfacesuperresolution_tpu_torch.render.shading import (
     safe_normalize, screen_space_shading)
 from isosurfacesuperresolution_tpu_torch.render.sweep import (
     AnyGrid, render_gbuffer_sweep)
+from isosurfacesuperresolution_tpu_torch.utils.spectral_norm import (
+    apply_sn_tree)
 
 
 class FrameState(NamedTuple):
@@ -103,7 +105,9 @@ class FusedFrame:
     "bilinear" resizes of the low-res input.  The warp of the previous
     state is always the shift-blend warp with a clamp of 8 px, as in the
     JAX fused frame's default.  The planar engine's kernels, index tensors
-    and constants are built here, once, on the frame's device."""
+    and constants are built here, once, on the frame's device, from the
+    model's weights spectrally normalized first under ``use_sn`` (which
+    the interleaved network's forward refuses)."""
 
     def __init__(self, model: Optional[EnhanceNet], cfg: Config,
                  render_cfg: RenderConfig, upscale_mode: str = "network",
@@ -126,7 +130,12 @@ class FusedFrame:
                             else cfg.shading)
         self.planar_net = self.planar_tables = None
         if self.use_planar:
-            self.planar_net = planar_mod.PlanarNet(model, cfg.model,
+            params = model.state_dict()
+            if cfg.model.use_sn:
+                # the --useSN transform, a pure function of the weights,
+                # which JAX's fused frame applies before `planar_apply`
+                params = apply_sn_tree(params)
+            self.planar_net = planar_mod.PlanarNet(params, cfg.model,
                                                    device=self.device)
             self.planar_tables = planar_mod.PlanarTables(
                 render_cfg.height, render_cfg.width,

@@ -1,6 +1,7 @@
 """Sub-pixel-planar inference engine: the 4x SR frame without interleaves.
 
-Counterpart of the JAX package's `infer/planar.py` (all of it but int8).
+Counterpart of the JAX package's `infer/planar.py`, int8 post-training
+quantization included (`ModelConfig.planar_int8`, `_conv_int8`).
 Every tensor of the frame stays at the renderer's resolution (or 2x), with
 the 4 x 4 = 16 high-res sub-pixels in the channel dimension, through the
 network tail, the residual reconstruction, clamping, shading, the recurrent
@@ -23,20 +24,23 @@ Borders use resize-clamp semantics (`_edge_conv` replicates the edge), so
 the engine equals the interleaved network in the interior only; the tail
 convs and the phase conv zero-pad (SAME), as in JAX.
 
-`PlanarNet` composes every kernel once, on the device, when it is built,
-and keeps its activations in the layout its convolutions read: NHWC
-memory (channels-last) in bf16, where the phase conv's input and output
-are then views, NCHW in float32.  `planar_apply` is the JAX package's
-one-call form (it composes per call).  `PlanarTables` holds a frame's
-index tensors and constant grids; `FusedFrame` builds them once, so a
-frame copies nothing from the host.
+`PlanarNet` composes every kernel once, on the device, when it is built
+(and with ``planar_int8`` quantizes the trunk's and post1-post3's weights
+once: a pure function of the weights, which JAX recomputes per frame), and
+keeps its activations in the layout its convolutions read: NHWC memory
+(channels-last) in bf16, where the phase conv's input and output are then
+views, NCHW in float32.  `planar_apply` is the JAX package's one-call form
+(it composes per call); like JAX's it convolves the weights it is given,
+and `FusedFrame` spectrally normalizes them first under ``use_sn``.
+`PlanarTables` holds a frame's index tensors and constant grids;
+`FusedFrame` builds them once, so a frame copies nothing from the host.
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Mapping, Optional, Tuple, Union
+from typing import Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -174,9 +178,13 @@ def _nchw_pad(padding):
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor,
           bias: Optional[torch.Tensor] = None, padding="SAME",
-          dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """NHWC conv with an HWIO kernel (the JAX package's `_conv`)."""
+          dtype: Optional[torch.dtype] = None,
+          quant: bool = False) -> torch.Tensor:
+    """NHWC conv with an HWIO kernel (the JAX package's `_conv`); with
+    ``quant`` the int8 `_conv_int8`."""
     dtype = dtype or x.dtype
+    if quant:
+        return _conv_int8(x, kernel, bias, padding, dtype)
     y = _conv_nchw(x.permute(0, 3, 1, 2), _oihw(kernel), bias,
                    _nchw_pad(padding), dtype)
     return y.permute(0, 2, 3, 1)
@@ -184,11 +192,125 @@ def _conv(x: torch.Tensor, kernel: torch.Tensor,
 
 def _edge_conv(x: torch.Tensor, kernel: torch.Tensor,
                bias: Optional[torch.Tensor] = None,
-               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """NHWC 3x3 conv over an edge-padded input."""
+               dtype: Optional[torch.dtype] = None,
+               quant: bool = False) -> torch.Tensor:
+    """NHWC 3x3 VALID conv over an edge-padded input; with ``quant`` the
+    int8 `_conv_int8` of the padded input."""
     dtype = dtype or x.dtype
+    if quant:
+        xp = _edge_pad(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return _conv_int8(xp, kernel, bias, "VALID", dtype)
     y = _edge_conv_nchw(x.permute(0, 3, 1, 2), _oihw(kernel), bias, dtype)
     return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# int8 post-training quantization (the JAX package's `_conv_int8`)
+# ---------------------------------------------------------------------------
+
+_I8 = torch.int8
+# channel padding of the int8 matmuls: zero rows and columns keep the sums
+# exact, and the card's int8 matmul wants multiples of 8 and 16-byte
+# aligned rows
+_CH_ALIGN = 16
+
+
+def quantize_kernel(kernel: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HWIO ``kernel`` -> (int8 ``kq``, float32 per-output-channel scales
+    ``sw``): sw = max(max |k| over (0, 1, 2) / 127, 1e-12), kq =
+    round(k / sw), half to even."""
+    kf = kernel.to(_F32)
+    sw = torch.clamp(kf.abs().amax(dim=(0, 1, 2)) / 127.0, min=1e-12)
+    return torch.round(kf / sw).to(_I8), sw
+
+
+def quantize_activation(x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` -> (int8 ``xq``, 0-d float32 scale ``sx``), one scale per
+    call: sx = max(max |x| / 127, 1e-12), xq = round(x / sx).  ``sx``
+    stays on the device: no host sync."""
+    xf = x.to(_F32)
+    sx = torch.clamp(xf.abs().amax() / 127.0, min=1e-12)
+    return torch.round(xf / sx).to(_I8), sx
+
+
+class Int8Conv(NamedTuple):
+    """A conv's quantized weights: ``taps`` (KH, KW, N, K) int8, tap
+    (dy, dx) an (N, K) row-major matrix of output by input channels
+    zero-padded to multiples of 16; ``sw`` the (Cout,) weight scales,
+    ``bias`` (Cout,) float32 or None, ``cout`` the real output width."""
+
+    taps: torch.Tensor
+    sw: torch.Tensor
+    bias: Optional[torch.Tensor]
+    cout: int
+
+
+def int8_conv(kernel: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> Int8Conv:
+    """Quantize an HWIO kernel once (`quantize_kernel`) into `Int8Conv`."""
+    kq, sw = quantize_kernel(kernel)
+    cin, cout = kq.shape[2], kq.shape[3]
+    taps = F.pad(kq.permute(0, 1, 3, 2),
+                 (0, -cin % _CH_ALIGN, 0, -cout % _CH_ALIGN))
+    return Int8Conv(taps.contiguous(), sw,
+                    None if bias is None else bias.to(_F32), cout)
+
+
+def int8_conv_sums(xq: torch.Tensor, taps: torch.Tensor,
+                   pad) -> torch.Tensor:
+    """The exact int32 sums of an int8 conv: ``xq`` (B, H, W, Cin) int8
+    NHWC, ``taps`` of `Int8Conv`, ``pad`` zeros as `_conv_nchw` takes
+    them (an int for every side, or (left, right, top, bottom)) ->
+    (B, Ho, Wo, N) int32.  Each tap is one `torch._int_mm` over a shifted
+    row window of the flattened padded input (its rows span the padded
+    width; the last columns, which wrap, are cut), the nine summed in
+    int32: at most 9 * 256 * 127^2 (3.7e7), far from 2^31."""
+    b, h, w, cin = xq.shape
+    kh, kw, _, k = taps.shape
+    left, right, top, bottom = (pad,) * 4 if isinstance(pad, int) else pad
+    hp, wp = h + top + bottom, w + left + right
+    m = b * hp * wp
+    xp = F.pad(xq, (0, k - cin, left, right, top, bottom)).reshape(m, k)
+    flat = F.pad(xp, (0, 0, 0, (kh - 1) * wp + kw - 1))
+    acc = None
+    for dy in range(kh):
+        for dx in range(kw):
+            off = dy * wp + dx
+            y = torch._int_mm(flat[off:off + m], taps[dy, dx].t())
+            acc = y if acc is None else acc.add_(y)
+    return acc.reshape(b, hp, wp, -1)[:, :hp - kh + 1, :wp - kw + 1]
+
+
+def int8_apply(x: torch.Tensor, q: Int8Conv, pad,
+               dtype: torch.dtype) -> torch.Tensor:
+    """`_conv_int8` on pre-quantized weights: NHWC ``x`` quantized per
+    call, exact int32 sums, then ``sums * (sx * sw) + bias`` in float32,
+    in that order, cast to ``dtype``."""
+    xq, sx = quantize_activation(x)
+    y = int8_conv_sums(xq.contiguous(), q.taps, pad)[..., :q.cout]
+    y = y.to(_F32) * (sx * q.sw)
+    if q.bias is not None:
+        y = y + q.bias
+    return y.to(dtype)
+
+
+def _conv_int8(x: torch.Tensor, kernel: torch.Tensor,
+               bias: Optional[torch.Tensor], padding,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The JAX package's `_conv_int8`: post-training-quantized conv of
+    NHWC ``x`` with an HWIO ``kernel`` (per-output-channel weight scales,
+    one activation scale per call, s8 x s8 -> s32 sums)."""
+    return int8_apply(x, int8_conv(kernel, bias), _nchw_pad(padding), dtype)
+
+
+def _conv_int8_nchw(x: torch.Tensor, q: Int8Conv, pad, dtype: torch.dtype,
+                    memory_format: torch.memory_format) -> torch.Tensor:
+    """`int8_apply` on NCHW-shaped ``x`` in any memory format; the output
+    in ``memory_format``."""
+    y = int8_apply(x.permute(0, 2, 3, 1), q, pad, dtype)
+    return y.permute(0, 3, 1, 2).contiguous(memory_format=memory_format)
 
 
 # ---------------------------------------------------------------------------
@@ -242,11 +364,13 @@ def _tail_kernel(kernel: torch.Tensor, bias: torch.Tensor,
 
 def planar_tail_conv(z: torch.Tensor, kernel: torch.Tensor,
                      bias: torch.Tensor, dtype: torch.dtype,
-                     in_perm: Optional[np.ndarray] = None) -> torch.Tensor:
+                     in_perm: Optional[np.ndarray] = None,
+                     quant: bool = False) -> torch.Tensor:
     """conv3x3-after-shuffle as one dense planar conv, c-major in and out.
-    z (..., H, W, 4*Cin); kernel (3, 3, Cin, Cout).  SAME zero padding."""
+    z (..., H, W, 4*Cin); kernel (3, 3, Cin, Cout).  SAME zero padding;
+    ``quant``: int8 `_conv_int8`."""
     kc, b4 = _tail_kernel(kernel, bias, in_perm)
-    return _conv(z, kc, b4, padding="SAME", dtype=dtype)
+    return _conv(z, kc, b4, padding="SAME", dtype=dtype, quant=quant)
 
 
 def _split_kernels(kernel: torch.Tensor, bias: torch.Tensor):
@@ -265,7 +389,8 @@ def _split_kernels(kernel: torch.Tensor, bias: torch.Tensor):
 
 
 def planar_tail_conv_split(z: torch.Tensor, kernel: torch.Tensor,
-                           bias: torch.Tensor, dtype: torch.dtype
+                           bias: torch.Tensor, dtype: torch.dtype,
+                           quant: bool = False
                            ) -> Tuple[torch.Tensor, np.ndarray]:
     """conv3x3-after-shuffle as two row-phase convs (output sub-pixel row
     a only receives low-res row offsets {a-1, a}).  Returns ``(out,
@@ -273,7 +398,7 @@ def planar_tail_conv_split(z: torch.Tensor, kernel: torch.Tensor,
     ``order[j]`` is the c-major channel at position j, for the consumer to
     fold into its kernel rows (`planar_tail_conv(..., in_perm=order)`)."""
     parts, order = _split_kernels(kernel, bias)
-    outs = [_conv(z, ka, ba, padding=pad, dtype=dtype)
+    outs = [_conv(z, ka, ba, padding=pad, dtype=dtype, quant=quant)
             for ka, ba, pad in parts]
     return torch.cat(outs, -1), order
 
@@ -282,17 +407,10 @@ def planar_tail_conv_split(z: torch.Tensor, kernel: torch.Tensor,
 # Forward pass
 # ---------------------------------------------------------------------------
 
-def _check_config(cfg: ModelConfig) -> None:
-    if not supports_planar(cfg):
-        raise ValueError("planar engine: unsupported model configuration")
-    if cfg.planar_int8:
-        raise NotImplementedError(
-            "planar_int8 is not ported: stock PyTorch has no int8 conv on "
-            "the card (ROADMAP.md, queue A)")
-    if cfg.use_sn:
-        raise NotImplementedError(
-            "spectral normalization (use_sn) is not ported in the planar "
-            "engine (ROADMAP.md, queue A)")
+PHASE_INT8_MESSAGE = (
+    "planar_phase_tail and planar_int8 are mutually exclusive: the Pallas "
+    "phase kernel has no int8 path, so post3 would run unquantized and the "
+    "A/B would measure a mislabeled mixed configuration")
 
 
 class PlanarNet:
@@ -302,11 +420,16 @@ class PlanarNet:
     (OIHW weights named as the Flax layers).  ``__call__(net_in)`` takes
     (B, h, w, 101) NHWC, channels [0:5] the low G-buffer and [5:101] the
     warped previous state in nested order, and returns the planar
-    reconstruction (B, h, w, 96) in nested order."""
+    reconstruction (B, h, w, 96) in nested order.  With
+    ``cfg.planar_int8`` the trunk blocks and post1-post3 run as int8
+    post-training-quantized convs (``pre`` and ``out`` stay in the compute
+    type, as in JAX); with the phase tail as well it raises JAX's
+    ValueError."""
 
     def __init__(self, params: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: ModelConfig, device=None):
-        _check_config(cfg)
+        if not supports_planar(cfg):
+            raise ValueError("planar engine: unsupported model configuration")
         sd = params.state_dict() if isinstance(params, nn.Module) else params
         dev = torch.device(device) if device is not None else \
             next(iter(sd.values())).device
@@ -328,23 +451,32 @@ class PlanarNet:
             # in the activations' layout
             return w_oihw.to(dt).contiguous(memory_format=fmt), b.to(dt)
 
+        # int8 PTQ covers the trunk blocks and post1-post3, as in JAX
+        self.int8 = q8 = cfg.planar_int8
+
+        def layer(k_hwio, b):
+            """A quantized layer: its weights as `Int8Conv` under
+            planar_int8, else as `prep` stores them."""
+            return int8_conv(k_hwio, b) if q8 else prep(_oihw(k_hwio), b)
+
         n2f = np.concatenate([np.arange(5),
                               5 + nested_from_flat_perm(cfg.output_channels)])
         self.pre = prep(sd["pre.weight"][:, torch.as_tensor(n2f, device=dev)],
                         sd["pre.bias"])
-        self.blocks = [(prep(sd[f"block{i}_conv1.weight"],
-                             sd[f"block{i}_conv1.bias"]),
-                        prep(sd[f"block{i}_conv2.weight"],
-                             sd[f"block{i}_conv2.bias"]))
+        self.blocks = [(layer(hwio(f"block{i}_conv1"),
+                              sd[f"block{i}_conv1.bias"]),
+                        layer(hwio(f"block{i}_conv2"),
+                              sd[f"block{i}_conv2.bias"]))
                        for i in range(cfg.num_residual_blocks)]
-        self.f1 = prep(_oihw(compose_up2x_conv3x3(hwio("post1"),
-                                                  cfg.upsample)),
-                       up2x_conv_bias(sd["post1.bias"]))
+        self.f1 = layer(compose_up2x_conv3x3(hwio("post1"), cfg.upsample),
+                        up2x_conv_bias(sd["post1.bias"]))
         k2 = compose_up2x_conv3x3(hwio("post2"), cfg.upsample)
         b2 = up2x_conv_bias(sd["post2.bias"])
         # the phase kernel is 4 x 64 wide: other widths keep the dense tail
         self.phase_tail = cfg.planar_phase_tail and nf == 64
         self.split_tail = cfg.planar_split_tail and not self.phase_tail
+        if self.phase_tail and q8:
+            raise ValueError(PHASE_INT8_MESSAGE)
         if self.phase_tail:
             # F2's output columns go A-major, the phase conv's input layout
             amaj = _amajor_cols(nf)
@@ -358,34 +490,47 @@ class PlanarNet:
             self.out = prep(_oihw(ko), bo)
         elif self.split_tail:
             parts, order = _split_kernels(hwio("post3"), sd["post3.bias"])
-            self.post3 = [(*prep(_oihw(k), b), _nchw_pad(pad))
+            self.post3 = [(layer(k, b), _nchw_pad(pad))
                           for k, b, pad in parts]
             ko, bo = _tail_kernel(hwio("out"), sd["out.bias"], order)
             self.out = prep(_oihw(ko), bo)
         else:
-            k3, b3 = _tail_kernel(hwio("post3"), sd["post3.bias"])
-            self.post3 = prep(_oihw(k3), b3)
+            self.post3 = layer(*_tail_kernel(hwio("post3"),
+                                             sd["post3.bias"]))
             ko, bo = _tail_kernel(hwio("out"), sd["out.bias"])
             self.out = prep(_oihw(ko), bo)
-        self.f2 = prep(_oihw(k2), b2)
+        self.f2 = layer(k2, b2)
         kr = upsample_stencil_kernel(5, cfg.upsample, 4, device=dev)
         kr = kr[..., torch.as_tensor(nested_from_flat_perm(5), device=dev)]
         self.recon = _oihw(kr).contiguous()         # float32, NCHW input
 
+    def _conv(self, x: torch.Tensor, layer, pad) -> torch.Tensor:
+        """One conv of NCHW-shaped ``x``: ``layer`` an `Int8Conv` or the
+        (weight, bias) pair `prep` made; ``pad`` as `_conv_nchw` takes
+        it."""
+        if isinstance(layer, Int8Conv):
+            return _conv_int8_nchw(x, layer, pad, self.dtype,
+                                   self.memory_format)
+        return _conv_nchw(x, *layer, pad, self.dtype)
+
+    def _edge_conv(self, x: torch.Tensor, layer) -> torch.Tensor:
+        """3x3 VALID conv over an edge-replicated input."""
+        return self._conv(_edge_pad(x.to(self.dtype)), layer, 0)
+
     def __call__(self, net_in: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        conv = _conv_nchw
+        conv = self._conv
         x = net_in.permute(0, 3, 1, 2).to(dt).contiguous(
             memory_format=self.memory_format)
-        feat = torch.relu(conv(x, *self.pre, 1, dt))
-        for (w1, b1), (w2, b2) in self.blocks:
-            y = torch.relu(conv(feat, w1, b1, 1, dt))
-            feat = feat + conv(y, w2, b2, 1, dt)
+        feat = torch.relu(conv(x, self.pre, 1))
+        for conv1, conv2 in self.blocks:
+            y = torch.relu(conv(feat, conv1, 1))
+            feat = feat + conv(y, conv2, 1)
         # F1: upsample x2 + post1 composed, then the one mid-network shuffle
-        z = torch.relu(_edge_conv_nchw(feat, *self.f1, dt))
+        z = torch.relu(self._edge_conv(feat, self.f1))
         z = _shuffle_nchw(z)                               # (B, F, 2h, 2w)
         # F2: upsample x2 + post2 composed, planar output at 2x
-        z = torch.relu(_edge_conv_nchw(z, *self.f2, dt))
+        z = torch.relu(self._edge_conv(z, self.f2))
         if self.phase_tail:
             # A-major NHWC in, B-major NHWC out: views of channels-last z
             k3, b3 = self.post3
@@ -393,14 +538,14 @@ class PlanarNet:
                 z.permute(0, 2, 3, 1).to(torch.bfloat16), k3, b3,
                 relu=True, out_dtype=dt)
             z = conv(zb.permute(0, 3, 1, 2).contiguous(
-                memory_format=self.memory_format), *self.out, 1, dt)
+                memory_format=self.memory_format), self.out, 1)
         elif self.split_tail:
-            z = torch.relu(torch.cat([conv(z, k, b, pad, dt)
-                                      for k, b, pad in self.post3], 1))
-            z = conv(z, *self.out, 1, dt)
+            z = torch.relu(torch.cat([conv(z, part, pad)
+                                      for part, pad in self.post3], 1))
+            z = conv(z, self.out, 1)
         else:
-            z = torch.relu(conv(z, *self.post3, 1, dt))
-            z = conv(z, *self.out, 1, dt)
+            z = torch.relu(conv(z, self.post3, 1))
+            z = conv(z, self.out, 1)
         # one unshuffle: c-major planar at 2x -> nested planar at 1x
         z = _shuffle_nchw(z.to(_F32), inverse=True)       # (B, 96, h, w)
         # residual reconstruction as a fixed stencil conv, nested columns

@@ -24,10 +24,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 # kernel name -> (source, its own nvcc flags).  The march keeps every
 # product and sum separately rounded (--fmad=false), as in the reference's
-# elementwise arithmetic; the phase conv's bf16 products are exact in
-# float32, so it needs no such flag.
+# elementwise arithmetic; the convolutions' bf16 products are exact in
+# float32, so they need no such flag.
 SOURCES = {"sweep_march": ("sweep_march.cu", ["--fmad=false"]),
-           "phase_conv": ("phase_conv.cu", [])}
+           "phase_conv": ("phase_conv.cu", []),
+           "conv3x3": ("conv3x3.cu", [])}
 # flags of every source; -Xptxas -v reports registers/spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

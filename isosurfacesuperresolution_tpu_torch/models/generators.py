@@ -31,15 +31,17 @@ def network_input_channels(cfg: ModelConfig) -> int:
 
 class EnhanceNet(nn.Module):
     """``forward(inputs (B, H, W, Cin)) -> (recon, outputs)``, both
-    (B, uH, uW, Cout) float32."""
+    (B, uH, uW, Cout) float32.  A ``use_sn`` configuration has the same
+    weights (the normalization is a function of them, applied by the
+    planar engine's frame); its interleaved forward raises."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         if cfg.model.lower() != "enhancenet":
             raise NotImplementedError(f"model {cfg.model!r} is not ported")
-        if cfg.use_bn or cfg.use_sn or cfg.fused_upsample:
+        if cfg.use_bn or cfg.fused_upsample:
             raise NotImplementedError(
-                "use_bn, use_sn and fused_upsample are not ported")
+                "use_bn and fused_upsample are not ported")
         if cfg.upsample not in ("nearest", "bilinear"):
             raise NotImplementedError(f"upsample {cfg.upsample!r}")
         stages = int(math.log2(cfg.upscale_factor))
@@ -69,6 +71,10 @@ class EnhanceNet(nn.Module):
     def forward(self, inputs: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
+        if cfg.use_sn:
+            raise NotImplementedError(
+                "use_sn in the interleaved forward is not ported; the "
+                "planar engine takes it (ROADMAP.md, queue A)")
         # contiguous NCHW: cuDNN's float32 convs are NCHW kernels, and a
         # permuted NHWC view costs a layout conversion around every conv
         x = inputs.permute(0, 3, 1, 2).contiguous().to(self.dtype)

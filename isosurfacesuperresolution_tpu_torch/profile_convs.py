@@ -1,0 +1,153 @@
+"""Time the port's 3x3 conv kernels (B6, B7) beside cuDNN on the card.
+
+    python -m isosurfacesuperresolution_tpu_torch.profile_convs [--reps N]
+
+The port of the JAX package's `scripts/profile_pallas.py` and
+`scripts/profile_packed.py`, at their shapes and with their inputs (numpy
+``RandomState(0)``, drawn in their order):
+
+* B6 (`conv3x3_pallas_p128`) at the planar post3 shape, x (1, 540, 960,
+  256) and w (3, 3, 256, 256) in bf16, zero bias;
+* B6 at the padded trunk shape, x (1, 270, 480, 128), w (3, 3, 128, 128);
+* a chain of 20 B7 convs (`packed_conv3x3`, ReLU, zero bias) on
+  (1, 270, 480, 64) bf16 activations packed in pixel pairs.
+
+Each is printed beside cuDNN computing the same function: `F.conv2d` in
+bf16 on channels-last tensors (the chain: conv then ReLU, 20 times).  The
+JAX scripts' sweeps over the TPU band height have no counterpart.  Times
+are the median of ``--reps`` CUDA-event timings after a warm-up call, with
+the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from isosurfacesuperresolution_tpu_torch.ops.packed_conv import (
+    pack_pairs, packed_conv3x3)
+from isosurfacesuperresolution_tpu_torch.ops.pallas_conv import (
+    conv3x3_pallas_p128)
+
+_BF16 = torch.bfloat16
+
+
+def dense_inputs(device="cuda"):
+    """`profile_pallas.py`'s two B6 cases: [(name, x, w, b), ...] with x
+    and w bf16 (NHWC, HWIO) and b float32 zeros."""
+    rng = np.random.RandomState(0)
+
+    def bf16(a, scale=None):
+        t = torch.from_numpy((a - 0.5).astype(np.float32)).to(_BF16)
+        return (t if scale is None else t * scale).to(device)
+
+    x = bf16(rng.rand(1, 540, 960, 256))
+    k = bf16(rng.rand(3, 3, 256, 256), 0.05)
+    x2 = bf16(rng.rand(1, 270, 480, 128))
+    k2 = bf16(rng.rand(3, 3, 128, 128), 0.05)
+    zeros = lambda n: torch.zeros(n, dtype=torch.float32, device=device)
+    return [("post3 (540, 960) 256 -> 256", x, k, zeros(256)),
+            ("trunk (270, 480) 128 -> 128", x2, k2, zeros(128))]
+
+
+def packed_chain_inputs(device="cuda"):
+    """`profile_packed.py`'s chain: x (1, 270, 480, 64) bf16, 20 float32
+    kernels (3, 3, 64, 64) scaled by 0.1, zero bias (64,)."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((rng.rand(1, 270, 480, 64) - 0.5)
+                         .astype(np.float32)).to(_BF16).to(device)
+    ks = [torch.from_numpy((rng.rand(3, 3, 64, 64) - 0.5)
+                           .astype(np.float32)).to(device) * 0.1
+          for _ in range(20)]
+    return x, ks, torch.zeros(64, dtype=torch.float32, device=device)
+
+
+def conv_flops(h: int, w: int, cin: int, cout: int) -> float:
+    return 2.0 * h * w * cin * cout * 9
+
+
+def cudnn_input(x: torch.Tensor) -> torch.Tensor:
+    """NHWC ``x`` as the channels-last bf16 NCHW tensor cuDNN's
+    tensor-core convs read."""
+    return x.permute(0, 3, 1, 2).to(_BF16).contiguous(
+        memory_format=torch.channels_last)
+
+
+def cudnn_weight(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``w`` as a channels-last bf16 OIHW tensor."""
+    return w.permute(3, 2, 0, 1).to(_BF16).contiguous(
+        memory_format=torch.channels_last)
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``reps`` calls after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_convs needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+
+    def report(name, ms, flops):
+        print(f"{name:56s} {ms:8.3f} ms  {flops / ms / 1e9:7.1f} TFLOP/s",
+              flush=True)
+
+    for name, x, k, b in dense_inputs():
+        _, h, w, cin = x.shape
+        flops = conv_flops(h, w, cin, k.shape[3])
+        report(f"B6 {name}", time_ms(
+            lambda: conv3x3_pallas_p128(x, k, b), args.reps), flops)
+        xc, kc = cudnn_input(x), cudnn_weight(k)
+        report(f"cuDNN {name}", time_ms(
+            lambda: F.conv2d(xc, kc, padding=1), args.reps), flops)
+        del x, k, xc, kc
+
+    x, ks, b = packed_chain_inputs()
+    flops = 20 * conv_flops(270, 480, 64, 64)
+    kb = [k.to(_BF16) for k in ks]
+
+    def packed_chain():
+        y = pack_pairs(x)
+        for k in kb:
+            y = packed_conv3x3(y, k, b, relu=True)
+        return y
+
+    report("B7 chain of 20 (270, 480) 64 -> 64", time_ms(
+        packed_chain, args.reps), flops)
+    xc, kc = cudnn_input(x), [cudnn_weight(k) for k in ks]
+
+    def cudnn_chain():
+        y = xc
+        for k in kc:
+            y = torch.relu(F.conv2d(y, k, padding=1))
+        return y
+
+    report("cuDNN chain of 20 (270, 480) 64 -> 64", time_ms(
+        cudnn_chain, args.reps), flops)
+
+
+if __name__ == "__main__":
+    main()

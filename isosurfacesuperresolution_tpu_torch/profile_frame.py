@@ -13,7 +13,11 @@ steps of 0.03 rad):
   `bench.py --phase` times);
 * ``phase_ao``: ``phase`` on the grid with the baked SH occlusion field
   (ao_samples 64, ao_mode "volume");
-* ``nonplanar``: the interleaved network (planar "off"), float32.
+* ``nonplanar``: the interleaved network (planar "off"), float32;
+* ``int8``: the frame `bench.py --int8` times: compute_dtype bfloat16,
+  ``planar_int8`` (int8 post-training quantization of the trunk and
+  post1-post3), no phase tail, run00017's trained weights (the bench
+  draws random ones; the port has no Flax initializer).
 
 The others run the large dense volume of `scripts/bench_volumes.py`,
 `blobs_volume(512)` stored uint8 (made once, on the host), iso 0.36, on
@@ -69,7 +73,7 @@ from isosurfacesuperresolution_tpu_torch.volume.packed import (
 
 ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
 RUN_DIR = ARTIFACTS / "run00017"
-VARIANTS = ("planar", "phase", "phase_ao", "nonplanar", "planar512",
+VARIANTS = ("planar", "phase", "phase_ao", "nonplanar", "int8", "planar512",
             "gbuffer512", "gbuffer512_ao", "gbuffer512_aoc",
             "gbuffer512_packed", "gbuffer512_packed_ao", "planar512_packed")
 
@@ -188,6 +192,9 @@ def main() -> None:
         cfg, rcfg, g = lm.cfg, render_cfg, grid
         if variant in ("phase", "phase_ao"):
             cfg = phase_cfg
+        if variant == "int8":
+            cfg = Config(model=dataclasses.replace(
+                lm.cfg.model, compute_dtype="bfloat16", planar_int8=True))
         if variant == "phase_ao":
             torch.cuda.synchronize()
             t = time.time()

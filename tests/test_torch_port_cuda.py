@@ -9,6 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from isosurfacesuperresolution_tpu_torch import ops as port_ops
+from isosurfacesuperresolution_tpu_torch.infer import planar as PL
+from isosurfacesuperresolution_tpu_torch.ops import packed_conv as PK
+from isosurfacesuperresolution_tpu_torch.ops import pallas_conv as PC
 from isosurfacesuperresolution_tpu_torch.ops import phase_conv as pc
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
 from isosurfacesuperresolution_tpu_torch.render import sweep_tiled as PT
@@ -243,3 +247,118 @@ def test_ao_capture_packed_kernel_matches_plain(mm):
     # (1e-6); bf16 within one bf16 step of a term (2^-8 relative)
     np.testing.assert_allclose(got, want.numpy(), atol=1e-6,
                                rtol=0 if mm == "float32" else 2.0 ** -8)
+
+
+def _conv_case(seed, shape, cout):
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    return (torch.from_numpy((rng.rand(*shape) - 0.5).astype(np.float32)),
+            torch.from_numpy(((rng.rand(3, 3, c, cout) - 0.5) * 0.1)
+                             .astype(np.float32)),
+            torch.from_numpy((rng.rand(cout) - 0.5).astype(np.float32)))
+
+
+def _conv_close(got, want, out):
+    """Exact bf16 products, float32 sums (up to 2304 terms) in another
+    order: 1e-5 of the output's scale; a bf16 output may round the other
+    way, one step (2^-7 relative)."""
+    got, want = got.cpu().to(torch.float32), want.to(torch.float32)
+    tol = 1e-5 * float(want.abs().max()) + (
+        2.0 ** -7 * want.abs() if out == "bfloat16" else 0.0)
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("c,cout,h,w", [(128, 128, 11, 24),
+                                        (256, 128, 9, 40),
+                                        (128, 256, 5, 16),
+                                        (256, 256, 17, 8)])
+def test_conv3x3_p128_kernel_matches_plain(c, cout, h, w, relu, out):
+    """B6: partial 8 x 16 tiles on both axes, one and two 128-channel
+    output blocks."""
+    _need_card()
+    x, wt, b = _conv_case(c + cout + h, (1, h, w, c), cout)
+    odt = getattr(torch, out)
+    before = PC.conv3x3_p128_kernel.launches
+    got = PC.conv3x3_pallas_p128(x.cuda(), wt.cuda(), b.cuda(), relu=relu,
+                                 out_dtype=odt)
+    torch.cuda.synchronize()
+    assert PC.conv3x3_p128_kernel.launches == before + 1
+    assert got.dtype == odt and got.shape == (1, h, w, cout)
+    _conv_close(got, PC.conv3x3_p128_plain(x, wt, b, relu=relu,
+                                           out_dtype=odt), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("h,w2", [(11, 12), (6, 40), (3, 8)])
+def test_packed_conv3x3_kernel_matches_plain(h, w2, relu, out):
+    """B7 on the packed memory: unpacked widths 24, 80 and 16."""
+    _need_card()
+    x, k3, b = _conv_case(h + w2, (1, h, w2, 128), 64)
+    k3 = k3[:, :, :64]
+    odt = getattr(torch, out)
+    before = PK.packed_conv3x3_kernel.launches
+    got = PK.packed_conv3x3(x.cuda(), k3.cuda(), b.cuda(), relu=relu,
+                            out_dtype=odt)
+    torch.cuda.synchronize()
+    assert PK.packed_conv3x3_kernel.launches == before + 1
+    assert got.dtype == odt and got.shape == (1, h, w2, 128)
+    _conv_close(got, PK.packed_conv3x3_plain(x, k3, b, relu=relu,
+                                             out_dtype=odt), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [16, 13])
+def test_conv3x3_dispatch_on_card(width):
+    """`conv3x3` on CUDA tensors: W % 8 == 0 runs B6 over 128-padded
+    channels (the plain version's function of the padded operands); else
+    the stock conv (float32, TF32 off), as on the CPU."""
+    _need_card()
+    x, wt, b = _conv_case(width, (1, 7, width, 24), 40)
+    before = PC.conv3x3_p128_kernel.launches
+    got = port_ops.conv3x3(x.cuda(), wt.cuda(), b.cuda(), relu=True)
+    torch.cuda.synchronize()
+    kernel = width % 8 == 0
+    assert PC.conv3x3_p128_kernel.launches == before + int(kernel)
+    if kernel:
+        want = PC.conv3x3_p128_plain(
+            PC.pad_lanes(x), PC.pad_lanes(PC.pad_lanes(wt, axis=2), axis=3),
+            PC.pad_lanes(b), relu=True, out_dtype=torch.float32)[..., :40]
+    else:
+        want = port_ops.conv3x3(x, wt, b, relu=True)
+    _conv_close(got, want, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", ["SAME", "VALID", ((1, 0), (1, 1))])
+def test_int8_conv_on_card_equals_cpu(pad):
+    """The int8 conv's int32 sums on the card (`torch._int_mm` per tap)
+    equal the CPU's, with channels that need padding (24 -> 20) and the
+    planar widths (256 -> 128); the output within 1e-6 of its scale."""
+    _need_card()
+    rng = np.random.RandomState(9)
+    kh = 3 if isinstance(pad, str) else 2
+    for cin, cout, h, w in ((24, 20, 7, 9), (256, 128, 12, 20)):
+        x = torch.from_numpy(rng.randn(1, h, w, cin).astype(np.float32))
+        k = torch.from_numpy((rng.randn(kh, 3, cin, cout) * 0.1)
+                             .astype(np.float32))
+        b = torch.from_numpy(rng.randn(cout).astype(np.float32))
+        q, qc = PL.int8_conv(k, b), PL.int8_conv(k.cuda(), b.cuda())
+        xq, _ = PL.quantize_activation(x)
+        xqc, _ = PL.quantize_activation(x.cuda())
+        assert torch.equal(xqc.cpu(), xq) and torch.equal(qc.taps.cpu(),
+                                                          q.taps)
+        pads = PL._nchw_pad(pad)
+        sums = PL.int8_conv_sums(xqc, qc.taps, pads)
+        assert sums.dtype == torch.int32
+        assert torch.equal(sums.cpu(), PL.int8_conv_sums(xq, q.taps, pads))
+        got = PL._conv_int8(x.cuda(), k.cuda(), b.cuda(), pad,
+                            torch.float32).cpu()
+        want = PL._conv_int8(x, k, b, pad, torch.float32)
+        assert float((got - want).abs().max()) <= \
+            1e-6 * float(want.abs().max())

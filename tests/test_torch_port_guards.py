@@ -16,6 +16,9 @@ from isosurfacesuperresolution_tpu_torch.config import (
 from isosurfacesuperresolution_tpu_torch.infer import pipeline
 from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import LoadedModel
 from isosurfacesuperresolution_tpu_torch.models.generators import EnhanceNet
+from isosurfacesuperresolution_tpu_torch import ops as port_ops
+from isosurfacesuperresolution_tpu_torch.ops import packed_conv
+from isosurfacesuperresolution_tpu_torch.ops import pallas_conv
 from isosurfacesuperresolution_tpu_torch.ops import phase_conv
 from isosurfacesuperresolution_tpu_torch.render import sweep_march
 from isosurfacesuperresolution_tpu_torch.render import sweep_tiled
@@ -42,7 +45,8 @@ print(bad)
 
 NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
                "render.ao_sweep", "render.sweep_tiled", "volume.grid",
-               "volume.packed")
+               "volume.packed", "ops.pallas_conv", "ops.packed_conv",
+               "utils.spectral_norm", "profile_convs")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -52,7 +56,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     names = names.split()
-    assert len(names) >= 32          # every module of the port was imported
+    assert len(names) >= 37          # every module of the port was imported
     for mod in NEW_MODULES:
         assert f"isosurfacesuperresolution_tpu_torch.{mod}" in names
     assert bad == "[]"
@@ -130,6 +134,9 @@ def _no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(sweep_tiled, "ao_capture_tiled_plain", plain)
     monkeypatch.setattr(sweep_tiled, "march_packed_plain", plain)
     monkeypatch.setattr(sweep_tiled, "ao_capture_packed_plain", plain)
+    monkeypatch.setattr(pallas_conv, "_FNS", {})
+    monkeypatch.setattr(pallas_conv, "conv3x3_p128_plain", plain)
+    monkeypatch.setattr(packed_conv, "packed_conv3x3_plain", plain)
 
 
 def _tiled_args(device):
@@ -283,6 +290,77 @@ def test_phase_conv_refuses_other_devices():
                               torch.empty(64, device="meta"))
 
 
+def _conv_launches():
+    return (pallas_conv.conv3x3_p128_kernel.launches,
+            packed_conv.packed_conv3x3_kernel.launches)
+
+
+CONV_CALLS = {
+    "conv3x3_pallas_p128": lambda dev: pallas_conv.conv3x3_pallas_p128(
+        torch.empty((1, 5, 8, 128), device=dev),
+        torch.empty((3, 3, 128, 256), device=dev),
+        torch.empty(256, device=dev), relu=True),
+    "packed_conv3x3": lambda dev: packed_conv.packed_conv3x3(
+        torch.empty((1, 5, 8, 128), dtype=torch.bfloat16, device=dev),
+        torch.empty((3, 3, 64, 64), device=dev),
+        torch.empty(64, device=dev)),
+    "conv3x3": lambda dev: port_ops.conv3x3(
+        torch.empty((1, 5, 16, 24), device=dev),
+        torch.empty((3, 3, 24, 40), device=dev)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONV_CALLS))
+def test_convs_raise_for_cuda_request_without_library(monkeypatch,
+                                                      tmp_path, name):
+    """B6, B7 and their callers on CUDA tensors need the kernel: without a
+    buildable library they raise; they neither run a plain version nor
+    count a launch."""
+    _no_library(monkeypatch, tmp_path)
+    before = _conv_launches()
+    with FakeTensorMode():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            CONV_CALLS[name]("cuda")
+    assert _conv_launches() == before
+
+
+def test_conv3x3_dispatch_takes_stock_conv_where_jax_does(monkeypatch,
+                                                          tmp_path):
+    """On CUDA tensors whose width is not a multiple of 8 `conv3x3` takes
+    the stock conv, as JAX does on the TPU; it launches nothing."""
+    _no_library(monkeypatch, tmp_path)
+    before = _conv_launches()
+    with FakeTensorMode():
+        y = port_ops.conv3x3(torch.empty((1, 5, 13, 24), device="cuda"),
+                             torch.empty((3, 3, 24, 40), device="cuda"),
+                             torch.empty(40, device="cuda"), relu=True)
+        assert tuple(y.shape) == (1, 5, 13, 40) and y.device.type == "cuda"
+    assert _conv_launches() == before
+
+
+def test_conv3x3_packed_goes_through_the_b6_wrapper(monkeypatch):
+    """`conv3x3_packed` calls `conv3x3_pallas_p128` on the pair-packed
+    tensor and weights (which launches B6 on CUDA tensors), as JAX's calls
+    its Pallas kernel."""
+    seen = []
+
+    def spy(x, w, b, relu=False, out_dtype=torch.bfloat16):
+        seen.append((tuple(x.shape), tuple(w.shape), relu, out_dtype))
+        return torch.zeros((*x.shape[:3], w.shape[3]), dtype=out_dtype)
+
+    monkeypatch.setattr(pallas_conv, "conv3x3_pallas_p128", spy)
+    y = pallas_conv.conv3x3_packed(torch.zeros((1, 5, 16, 64)),
+                                   torch.zeros((3, 3, 64, 64)), relu=True)
+    assert seen == [((1, 5, 8, 128), (3, 3, 128, 128), True, torch.float32)]
+    assert tuple(y.shape) == (1, 5, 16, 64)
+
+
+@pytest.mark.parametrize("name", ["conv3x3_pallas_p128", "packed_conv3x3"])
+def test_convs_refuse_other_devices(name):
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        CONV_CALLS[name]("meta")
+
+
 def test_find_nvcc_raises_without_toolkit(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as cpp_extension
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -310,11 +388,12 @@ def test_library_name_follows_source_and_flags(monkeypatch):
 
 def test_nvcc_flags_are_per_source(monkeypatch):
     """The march keeps every product and sum rounded on its own; the phase
-    conv (exact bf16 products) is built without --fmad=false, and each
-    library name hashes its own flags."""
+    conv and the 3x3 convs (exact bf16 products) are built without
+    --fmad=false, and each library name hashes its own flags."""
     assert "--fmad=false" in kernels.flags("sweep_march")
     assert "--fmad=false" not in kernels.flags("phase_conv")
-    assert set(kernels.SOURCES) == {"sweep_march", "phase_conv"}
+    assert "--fmad=false" not in kernels.flags("conv3x3")
+    assert set(kernels.SOURCES) == {"sweep_march", "phase_conv", "conv3x3"}
     b = kernels.library_path("phase_conv")
     monkeypatch.setitem(kernels.SOURCES, "phase_conv",
                         ("phase_conv.cu", ["--fmad=false"]))

@@ -293,14 +293,25 @@ def test_layout_keeping_helpers_match_torch(op):
 
 @pytest.mark.parametrize("flag", ["planar_int8", "use_sn"])
 def test_planar_refuses_unported_options(flag):
-    cfg = ModelConfig(num_residual_blocks=1, num_features=8)
+    """Both options run in the planar engine (held against JAX in
+    tests/test_torch_port_int8.py); what each still refuses: int8 with the
+    phase tail (JAX's own ValueError), and use_sn in the interleaved
+    network's forward (not ported)."""
+    if flag == "planar_int8":
+        bad = ModelConfig(num_residual_blocks=1, num_features=64,
+                          planar_phase_tail=True, planar_int8=True)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            P.planar_apply(EnhanceNet(bad), bad, torch.zeros((1, 4, 4, 101)))
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            FusedFrame(EnhanceNet(bad), Config(model=bad),
+                       RenderConfig(width=8, height=8), device="cpu")
+        return
+    cfg = ModelConfig(num_residual_blocks=1, num_features=8, use_sn=True)
     net = EnhanceNet(cfg)
-    bad = dataclasses.replace(cfg, **{flag: True})
+    assert P.planar_apply(net, cfg, torch.zeros((1, 4, 4, 101))).shape == (
+        1, 4, 4, 96)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        P.planar_apply(net, bad, torch.zeros((1, 4, 4, 101)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FusedFrame(net, Config(model=bad), RenderConfig(width=8, height=8),
-                   device="cpu")
+        net(torch.zeros((1, 4, 4, 101)))
 
 
 def test_resolve_planar_follows_jax():
