@@ -8,7 +8,9 @@ seconds; any failure ends the run with a non-zero exit code:
 
 1. versions and the card (`nvidia-smi` name and power limit);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
-   source, started together);
+   source, started together), and print each 3x3 conv instantiation's
+   registers, spills and shared memory from the ``-Xptxas -v`` log (any
+   spill fails the run);
 3. each kernel vs its plain PyTorch version on the card at the shapes of
    the interactive frame, with stated bounds, and their times: the march
    (256^3 blobs, 480x270, oversample 1.25: K = 512 slices, Sn x Tn =
@@ -65,9 +67,14 @@ seconds; any failure ends the run with a non-zero exit code:
    lanes at (1, 270, 480, 128), `conv3x3_packed` with block0_conv1 at
    (1, 270, 480, 64), the pixel-pair packed conv (B7) on each of
    run00017's 20 trunk kernels at (1, 270, 240, 128) and the 20-conv B7
-   chain of `profile_convs` beside a cuDNN chain; then the path of these
-   entry points (`ops.conv3x3` at both shapes, `conv3x3_packed`, the B7
-   chain on the trunk kernels) with its launches counted;
+   chain of `profile_convs` beside a cuDNN chain; each kernel and its
+   cuDNN call timed in turns (cuDNN, kernel, kernel, cuDNN), with its
+   TFLOP/s and its share of its bound (bound ms / ms); B6 post3 again
+   with float32 output, held and timed; the host microseconds of one B7
+   call (the wrapper, and its launch entry alone, enqueued without a
+   sync); then the path of these entry points (`ops.conv3x3` at both
+   shapes, `conv3x3_packed`, the B7 chain on the trunk kernels) with its
+   launches counted;
 19. the frames `bench.py --int8` times: run00017 in bf16 with
    `planar_int8` through `InferencePipeline`, 20 frames, then the float
    bf16 frame at the same cameras for the difference int8 makes;
@@ -88,6 +95,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -99,6 +107,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 T0 = time.time()
 
+# clock cycles of the spin that keeps the card busy while the host enqueues
+# the calls a timing measures (about 5 ms)
+SPIN_CYCLES = 10_000_000
 # H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -165,21 +176,92 @@ def cam_at(ang: float):
                                (0.0, 1.0, 0.0), 45.0)
 
 
-def time_cuda(fn, reps: int):
-    """Median milliseconds of ``reps`` calls after one warm-up call, each
-    between CUDA events."""
+def time_samples(fn, reps: int, backlog: bool = False) -> list:
+    """Milliseconds of ``reps`` calls after one warm-up call, each between
+    CUDA events.  With ``backlog`` each call is enqueued behind a spin of
+    a few milliseconds, so the card runs it without waiting for the host:
+    its device time without the host's launch cost."""
     import torch
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if backlog:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return times
+
+
+def time_cuda(fn, reps: int):
+    """Median milliseconds of ``reps`` calls after one warm-up call, each
+    between CUDA events."""
+    return statistics.median(time_samples(fn, reps))
+
+
+def time_turns(kernel_fn, lib_fn, reps: int) -> tuple:
+    """A kernel and the library call for the same function timed in turns,
+    library, kernel, kernel, library (``reps`` calls a turn, each behind a
+    backlog): (kernel ms, library ms, the per-turn medians of each), ms
+    the median over both turns."""
+    lib1 = time_samples(lib_fn, reps, backlog=True)
+    k1 = time_samples(kernel_fn, reps, backlog=True)
+    k2 = time_samples(kernel_fn, reps, backlog=True)
+    lib2 = time_samples(lib_fn, reps, backlog=True)
+    return (statistics.median(k1 + k2), statistics.median(lib1 + lib2),
+            [statistics.median(k1), statistics.median(k2)],
+            [statistics.median(lib1), statistics.median(lib2)])
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work while
+    the card is busy (as in a chain of calls): ``n`` calls on the host
+    clock behind a long spin, with no sync between them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20 * SPIN_CYCLES)
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
+def conv_usage(kernels) -> list:
+    """Phase 2's figures for the conv library, one line per instantiation
+    of `conv3x3_kernel<NT, OUT_BF16, RELU>`: registers, spill bytes and
+    stack from the ``-Xptxas -v`` log, static shared memory from it and
+    the dynamic shared memory the library launches with.  Raises on a
+    missing log, a missing instantiation or any spill."""
+    import ctypes
+    lib = kernels.load("conv3x3")
+    lib.conv3x3_smem_bytes.argtypes = [ctypes.c_int]
+    lib.conv3x3_smem_bytes.restype = ctypes.c_int
+    usage = [u for u in kernels.ptxas_usage(kernels.build_log("conv3x3"))
+             if "conv3x3_kernel" in u["entry"]]
+    if len(usage) != 12:
+        raise RuntimeError(f"the conv library's ptxas log lists "
+                           f"{len(usage)} kernels, expected 12")
+    lines = []
+    for u in usage:
+        nt, ob, relu = re.search(r"conv3x3_kernelILi(\d+)ELb([01])ELb([01])E",
+                                 u["entry"]).groups()
+        lines.append(
+            f"conv3x3_kernel<{nt}, {'bf16' if ob == '1' else 'float32'} "
+            f"out, {'ReLU' if relu == '1' else 'no ReLU'}>: "
+            f"{u['registers']} registers at launch, spill stores "
+            f"{u['spill_stores']} B, spill loads {u['spill_loads']} B, "
+            f"stack {u['stack']} B, shared memory {u['static_smem']} B "
+            f"static + {lib.conv3x3_smem_bytes(int(nt))} B dynamic")
+        if u["spill_stores"] or u["spill_loads"]:
+            raise RuntimeError(f"spills in {lines[-1]}")
+    return lines
 
 
 def march_bound_ms(args: dict, outs) -> tuple:
@@ -533,6 +615,8 @@ def main() -> int:
             log(f"built {name} in {info['seconds']:.1f}s; "
                 + " | ".join(regs))
         log(f"build {time.time() - t:.1f}s")
+        for line in conv_usage(kernels):
+            log(f"[ptxas] {line}")
 
     import torch.nn.functional as F
 
@@ -1248,27 +1332,52 @@ def main() -> int:
             outs18[tag] = got
             kb = k.to(bf16).contiguous()
             bf = b.float().contiguous()
-            ms = time_cuda(lambda: p128.conv3x3_p128_kernel(
-                x, kb, bf, True, bf16), 7)
-            plain_ms = time_cuda(lambda: p128.conv3x3_p128_plain(
-                x, k, b, relu=True), 3)
             xc = profile_convs.cudnn_input(x)
             kc = profile_convs.cudnn_weight(k)
             bc = b.to(bf16)
-            lib_ms = time_cuda(lambda: F.conv2d(xc, kc, bc, padding=1), 7)
+            ms, lib_ms, k_turns, lib_turns = time_turns(
+                lambda: p128.conv3x3_p128_kernel(x, kb, bf, True, bf16),
+                lambda: F.conv2d(xc, kc, bc, padding=1), 7)
+            idle_ms = time_cuda(lambda: p128.conv3x3_p128_kernel(
+                x, kb, bf, True, bf16), 7)
+            plain_ms = time_cuda(lambda: p128.conv3x3_p128_plain(
+                x, k, b, relu=True), 3)
             bound, bound_by = conv_bound_ms(h, w, cin, cout, 2)
             flops = 2.0 * h * w * cin * cout * 9
             log(f"[conv3x3_p128 {tag}] ({h}, {w}) {cin} -> {cout}, bf16 out, "
-                f"ReLU: kernel {ms:.3f} ms (median of 7; "
-                f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms "
-                f"(median of 3), bound {bound:.4f} ms by {bound_by}, "
-                f"library (F.conv2d bf16 channels-last with bias, no ReLU) "
-                f"{lib_ms:.3f} ms")
+                f"ReLU: kernel {ms:.4f} ms (turns {k_turns[0]:.4f}, "
+                f"{k_turns[1]:.4f}; 7 calls each; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s), {bound / ms:.3f} of its "
+                f"bound {bound:.4f} ms by {bound_by}; plain {plain_ms:.2f} "
+                f"ms (median of 3); library (F.conv2d bf16 channels-last "
+                f"with bias, no ReLU) {lib_ms:.4f} ms (turns "
+                f"{lib_turns[0]:.4f}, {lib_turns[1]:.4f}); kernel / "
+                f"library {ms / lib_ms:.2f}; single calls from an idle "
+                f"queue, host launch included (as PR 8 timed): "
+                f"{idle_ms:.4f} ms")
             rows[f"conv3x3_p128 {tag}"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": lib_ms}
             del got, want, xc, kc
+
+        # post3 with float32 output: two staging passes a tile
+        got = p128.conv3x3_pallas_p128(x3, k3c, b3c, relu=True,
+                                       out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        want = p128.conv3x3_p128_plain(x3, k3c, b3c, relu=True,
+                                       out_dtype=torch.float32)
+        check_conv("conv3x3_p128 post3 float32 out", got, want)
+        del got, want
+        kb, bf = k3c.to(bf16).contiguous(), b3c.float().contiguous()
+        ms = statistics.median(time_samples(
+            lambda: p128.conv3x3_p128_kernel(x3, kb, bf, True,
+                                             torch.float32), 7, backlog=True))
+        bound, bound_by = conv_bound_ms(540, 960, 256, 256, 4)
+        flops = 2.0 * 540 * 960 * 256 * 256 * 9
+        log(f"[conv3x3_p128 post3 float32 out] kernel {ms:.4f} ms (median "
+            f"of 7 behind a backlog; {flops / ms / 1e9:.1f} TFLOP/s), "
+            f"{bound / ms:.3f} of its bound {bound:.4f} ms by {bound_by}")
 
         got = p128.conv3x3_packed(x64, k0, b0, relu=True)
         torch.cuda.synchronize()
@@ -1295,21 +1404,35 @@ def main() -> int:
             b7_outs.append(got)
             y = got
         kb, bf = k0.to(bf16).contiguous(), b0.float().contiguous()
-        ms = time_cuda(lambda: pk.packed_conv3x3_kernel(xp0, kb, bf, True,
-                                                        bf16), 7)
-        plain_ms = time_cuda(lambda: pk.packed_conv3x3_plain(
-            xp0, k0, b0, relu=True), 3)
         xc = profile_convs.cudnn_input(pk.unpack_pairs(xp0))
         kc = profile_convs.cudnn_weight(k0)
         bc = b0.to(bf16)
-        lib_ms = time_cuda(lambda: F.conv2d(xc, kc, bc, padding=1), 7)
+        ms, lib_ms, k_turns, lib_turns = time_turns(
+            lambda: pk.packed_conv3x3_kernel(xp0, kb, bf, True, bf16),
+            lambda: F.conv2d(xc, kc, bc, padding=1), 7)
+        idle_ms = time_cuda(lambda: pk.packed_conv3x3_kernel(
+            xp0, kb, bf, True, bf16), 7)
+        plain_ms = time_cuda(lambda: pk.packed_conv3x3_plain(
+            xp0, k0, b0, relu=True), 3)
         bound, bound_by = conv_bound_ms(270, 480, 64, 64, 2)
         log(f"[packed_conv3x3] {len(trunk)} trunk kernels held; "
-            f"block0_conv1 at (270, 240, 128): kernel {ms:.4f} ms (median "
-            f"of 7; {2.0 * 270 * 480 * 64 * 64 * 9 / ms / 1e9:.1f} "
-            f"TFLOP/s), plain {plain_ms:.2f} ms (median of 3), bound "
-            f"{bound:.4f} ms by {bound_by}, library (F.conv2d bf16 "
-            f"channels-last with bias, no ReLU) {lib_ms:.4f} ms")
+            f"block0_conv1 at (270, 240, 128): kernel {ms:.4f} ms (turns "
+            f"{k_turns[0]:.4f}, {k_turns[1]:.4f}; 7 calls each; "
+            f"{2.0 * 270 * 480 * 64 * 64 * 9 / ms / 1e9:.1f} TFLOP/s), "
+            f"{bound / ms:.3f} of its bound {bound:.4f} ms by {bound_by}; "
+            f"plain {plain_ms:.2f} ms (median of 3); library (F.conv2d "
+            f"bf16 channels-last with bias, no ReLU) {lib_ms:.4f} ms "
+            f"(turns {lib_turns[0]:.4f}, {lib_turns[1]:.4f}); kernel / "
+            f"library {ms / lib_ms:.2f}; single calls from an idle queue, "
+            f"host launch included (as PR 8 timed): {idle_ms:.4f} ms")
+        wrap_us = host_us(lambda: pk.packed_conv3x3(xp0, kb, bf, relu=True))
+        entry_us = host_us(lambda: pk.packed_conv3x3_kernel(
+            xp0, kb, bf, True, bf16))
+        log(f"[packed_conv3x3] host time of one call while the card is "
+            f"busy (mean of 200, no sync): the wrapper `packed_conv3x3` "
+            f"{wrap_us:.1f} us, its launch entry `packed_conv3x3_kernel` "
+            f"{entry_us:.1f} us, against the kernel's {ms * 1e3:.1f} us "
+            f"on the card")
         rows["packed_conv3x3"] = {"max_abs_err": b7_err, "ms": ms,
                                   "plain_ms": plain_ms, "bound_ms": bound,
                                   "bound_by": bound_by, "library_ms": lib_ms}
@@ -1333,11 +1456,19 @@ def main() -> int:
                 y = torch.relu(F.conv2d(y, k, padding=1))
             return y
 
-        chain_ms = time_cuda(b7_chain, 5)
-        cudnn_chain_ms = time_cuda(cudnn_chain, 5)
+        chain_ms, cudnn_chain_ms, k_turns, lib_turns = time_turns(
+            b7_chain, cudnn_chain, 5)
+        # as a caller sees them: from an idle queue, the host included
+        called = [time_cuda(f, 5) for f in (cudnn_chain, b7_chain,
+                                            b7_chain, cudnn_chain)]
         log(f"[packed_conv3x3] chain of 20 at (270, 480) 64 -> 64 with "
-            f"ReLU: B7 {chain_ms:.3f} ms, cuDNN (conv + ReLU, bf16 "
-            f"channels-last) {cudnn_chain_ms:.3f} ms (median of 5 each)")
+            f"ReLU: B7 {chain_ms:.3f} ms (turns {k_turns[0]:.3f}, "
+            f"{k_turns[1]:.3f}; 5 chains each), cuDNN (conv + ReLU, bf16 "
+            f"channels-last) {cudnn_chain_ms:.3f} ms (turns "
+            f"{lib_turns[0]:.3f}, {lib_turns[1]:.3f}); B7 / cuDNN "
+            f"{chain_ms / cudnn_chain_ms:.2f}; as called from an idle "
+            f"queue, host included: B7 {called[1]:.3f}, {called[2]:.3f} "
+            f"ms, cuDNN {called[0]:.3f}, {called[3]:.3f} ms")
         del xr, ks, kbs, kcs, xrc
 
         # the path: the entry points at these widths, launches counted

@@ -1,13 +1,13 @@
 // 3x3 SAME convolutions for Hopper (sm_90a) on NHWC bf16 tensors, batch 1.
 //
 // Replaces two TPU kernels of isosurfacesuperresolution_tpu/ops:
-//  * B6, `_kernel` behind `conv3x3_pallas_p128` (pallas_conv.py): x (H, W, C)
-//    and w (3, 3, C, Cout) with C and Cout multiples of 128 (C entry
-//    `conv3x3_p128`);
-//  * B7, `_kernel` behind `packed_conv3x3` (packed_conv.py): a 64 -> 64 conv
-//    on pixel-pair-packed (H, W/2, 128) tensors, which are the memory of the
-//    unpacked (H, W, 64) ones, so it is this kernel with C = Cout = 64 at the
-//    unpacked width (C entry `packed_conv3x3`).
+//  * B6, `_kernel` (pallas_conv.py:35) behind `conv3x3_pallas_p128`: x
+//    (H, W, C) and w (3, 3, C, Cout) with C and Cout multiples of 128 (C
+//    entry `conv3x3_p128`);
+//  * B7, `_kernel` (packed_conv.py:80) behind `packed_conv3x3`: a 64 -> 64
+//    conv on pixel-pair-packed (H, W/2, 128) tensors, which are the memory
+//    of the unpacked (H, W, 64) ones, so it is this kernel with C = Cout =
+//    64 at the unpacked width (C entry `packed_conv3x3`).
 // Contract of both:
 //   y[i, j, co] = act(bias[co] + sum_{dy, dx, c} x[i+dy-1, j+dx-1, c]
 //                                                * w[dy, dx, c, co]),
@@ -18,213 +18,591 @@
 // 256 -> 256) is 611.5 GFLOP, 0.618 ms at the 989 TFLOP/s dense bf16
 // tensor-core peak, against 531 MB moved (0.159 ms at 3.35 TB/s):
 // operations.  B7 at 270 x 480 x 64 is 9.55 GFLOP (0.0097 ms) against
-// 33.2 MB (0.0099 ms): bytes and operations about equally.
+// 33.2 MB (0.0099 ms): bytes, with operations close behind.  So the
+// design keeps the tensor cores fed (wgmma on operands that TMA brings
+// ahead, the epilogue hidden behind the next tile) and keeps down the
+// bytes each tile pulls from L2 (one input box serves three taps); device
+// memory already sees each input and output element about once.
 //
-// Design (simple and right first; the TPU kernel's row-band DMAs, float32
-// accumulator rolls and B7's zero-block phase matrices are not carried
-// over): an implicit GEMM on the tensor cores with nvcuda::wmma bf16
-// 16x16x16 fragments and float32 accumulators.  A block owns an 8 x 16
-// tile of output pixels (M = 128) and NT output channels (128 for B6, 64
-// for B7) and loops over the input channels in steps of 32: per step it
-// stages the (8+2) x (16+2) x 32 input halo and the 9 x 32 x NT weight
-// slice in shared memory (100 KB for B6, so two blocks fit on an SM; 63 KB
-// for B7), then each of the 8 warps multiplies its tile rows (one 16-pixel
-// A fragment each) by its 64 output channels (four B fragments) over the
-// 9 taps.  Shared rows are padded by 16 elements, keeping the 32-byte wmma
-// pointer alignment.  The accumulators go through shared memory for the
-// bias, ReLU, cast and 16-byte stores.  Loads are not overlapped with the
-// MMAs within a block; wgmma, TMA and a multi-stage pipeline are the next
-// step.  bf16 x bf16 products are exact in float32, so the result differs
-// from a float32 reference conv on the same operands only in the order of
-// the sums (no --fmad=false needed).
+// Design: an implicit GEMM, M = output pixels, N = Cout, K = 9 taps x C,
+// in the shape Hopper's fast kernels take.
+//  * Tiles: 128 MB output pixels (a BH x BW block of the image, BW in 8 ...
+//    64 chosen on the host to waste the fewest pixels at the edges) by NT
+//    output channels (256 when Cout % 256 == 0, else 128; 64 for B7).  MB =
+//    2 at NT <= 128: each consumer warpgroup then owns two 64-row blocks,
+//    two independent chains of MMAs, which keeps the small m64n64k16 MMAs
+//    of B7 closer to the tensor cores' rate than one chain does.
+//  * Operands come by TMA, in the 128-byte swizzle (64 bf16 make one
+//    128-byte row), so A is a K-major and B an MN-major (Cout contiguous,
+//    `tnspB` = 1) wgmma operand as they land.  The input is a 3-D tensor
+//    map (C, W, H): per (64-channel chunk, dx) one box of 64 channels x BW
+//    x (BH + 2) rows at the tap's offset, whose pixels outside the image
+//    (negative coordinates included) TMA fills with zeros, so SAME padding
+//    costs no code.  The three dy taps read that box through views shifted
+//    by whole image rows (dy BW rows of 128 B, multiples of the swizzle's
+//    1024-byte period), which loads each input row from L2 3 (BH + 2) / BH
+//    times a chunk instead of 9 times.  The weights are a 2-D map (Cout,
+//    9 C), one (tap, chunk) step a 64 x NT box.  Maps are encoded on the
+//    host per call (pointers change) and passed as __grid_constant__
+//    parameters; `cuTensorMapEncodeTiled` is fetched with
+//    cudaGetDriverEntryPoint, so the library needs no -lcuda.
+//  * Warp specialisation: one producer thread keeps two rings in flight,
+//    two input boxes and 3-8 weight steps (160 KB), each slot with a
+//    full and an empty mbarrier; two consumer warpgroups, 64 MB pixels
+//    each, issue wgmma.mma_async m64nNTk16 (bf16 in, float32 accumulators:
+//    128 registers a thread at NT = 256 and 128, 64 at NT = 64), keep one
+//    step's MMAs in flight, and release a slot when its last MMAs are done.
+//    setmaxnreg gives the consumers 232 registers and the producer 40.
+//  * Persistent: one block per SM walks the tiles (N blocks innermost, so
+//    neighbouring blocks share input rows in L2); a tile's epilogue runs
+//    while the producer already loads the next tile's first steps.
+//  * Epilogue: bias, ReLU and cast in registers, written to a 32 KB
+//    staging buffer per consumer warpgroup in the 128-byte swizzle (no bank
+//    conflicts), then TMA stores (a third map, over y) that clip the
+//    image's ragged edges by themselves.  The stores drain while the
+//    consumers already multiply the next tile; a warpgroup waits for them
+//    to have read its buffer only before it refills it.
+// bf16 x bf16 products are exact in float32, so the result differs from a
+// float32 reference conv on the same operands only in the order of the
+// sums (no --fmad=false needed).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTH = 8;               // output tile rows
-constexpr int kTW = 16;              // output tile columns: one A fragment
-constexpr int kHaloH = kTH + 2;
-constexpr int kHaloW = kTW + 2;
-constexpr int kKC = 32;              // input channels per step
-constexpr int kHLd = kKC + 16;       // halo row stride (bf16): 96 B
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kStageLd = 68;         // float32 epilogue row stride
+constexpr int kKC = 64;                 // input channels a K step
+constexpr int kConsumers = 2;           // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr uint32_t kBlockBytes = 64 * 128;       // 64 rows of 128 B
+constexpr uint32_t kBBoxBytes = kKC * 64 * 2;    // one 64 x 64 weight box
+constexpr uint32_t kOutBytes = 32 * 1024;     // epilogue staging a warpgroup
+constexpr uint32_t kSmemMax = 227 * 1024;      // a block's shared memory
 
 template <int NT>
-struct Tile {
-  static constexpr int kWarpsN = NT / 64;           // 64 channels a warp
-  static constexpr int kWarpsM = kWarps / kWarpsN;
-  static constexpr int kRows = kTH / kWarpsM;       // tile rows a warp
-  static constexpr int kWLd = NT + 16;              // weight row stride
-  static constexpr int kMinBlocks = NT == 128 ? 2 : 3;
-  static constexpr size_t kWeightElems =
-      static_cast<size_t>(9) * kKC * kWLd;
-  static constexpr size_t kHaloElems =
-      static_cast<size_t>(kHaloH) * kHaloW * kHLd;
-  static constexpr size_t kSmemBytes =
-      (kWeightElems + kHaloElems) * sizeof(bf16);
-  static_assert(kWarpsN * kWarpsM == kWarps && kRows * kWarpsM == kTH,
-                "warps must tile the block");
-  static_assert(kWarps * kRows * 16 * kStageLd * sizeof(float) <=
-                    kSmemBytes,
-                "epilogue staging must fit in shared memory");
+struct Cfg {
+  static constexpr int kMB = NT == 256 ? 1 : 2;   // 64-row blocks a consumer
+  static constexpr int kTileM = 128 * kMB;         // output pixels a tile
+  // an input box: the tile's rows and two halo rows, at BW <= 64
+  static constexpr uint32_t kABytes = (kTileM + 2 * 64) * 128;
+  static constexpr int kAStages = 2;
+  static constexpr uint32_t kBBytes = kKC * NT * 2;   // a weight step
+  // 1 KB of slack aligns the rings to the swizzle's 1024-byte period; then
+  // the input ring, the weight ring, the staging buffers and the barriers
+  static constexpr int kBStages =
+      (kSmemMax - 1024 - kAStages * kABytes - kConsumers * kOutBytes - 512) /
+      kBBytes;
+  static constexpr size_t kSmem =
+      1024 + kAStages * kABytes + kBStages * kBBytes +
+      kConsumers * kOutBytes + 2 * (kAStages + kBStages) * sizeof(uint64_t);
+  static_assert(kBStages >= 3, "the weight ring needs three steps");
 };
 
-template <int NT, bool OUT_BF16, bool RELU>
-__global__ void __launch_bounds__(kThreads, Tile<NT>::kMinBlocks)
-conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-               const float* __restrict__ bias, void* __restrict__ y, int H,
-               int W, int C, int Cout) {
-  using T = Tile<NT>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ws = reinterpret_cast<bf16*>(smem_raw);
-  bf16* hs = ws + T::kWeightElems;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int warp_m = warp % T::kWarpsM;
-  const int warp_n = warp / T::kWarpsM;
-  const int tiles_x = (W + kTW - 1) / kTW;
-  const int p0 = (blockIdx.x / tiles_x) * kTH;
-  const int q0 = (blockIdx.x % tiles_x) * kTW;
-  const int n0 = blockIdx.y * NT;
+// The epilogue's output chunks: a 64-row block's 128-byte rows of 64 bf16
+// or 32 float32 channels, at most kOutBytes / kBlockBytes of them staged at
+// a time.
+template <int NT, bool OUT_BF16>
+struct Out {
+  static constexpr int kCols = OUT_BF16 ? 64 : 32;
+  static constexpr int kChunks = NT / kCols;      // a block's chunks
+  static constexpr int kPerPass = kOutBytes / kBlockBytes;
+  static constexpr int kPasses =
+      (Cfg<NT>::kMB * kChunks + kPerPass - 1) / kPerPass;
+};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::kRows][4];
-#pragma unroll
-  for (int r = 0; r < T::kRows; ++r) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[r][n], 0.f);
+struct Shape {
+  int H, W, C, Cout;
+  int bw_log2;    // tile width log2 (3 ... 6); BH = 128 MB / BW rows
+  int tiles_x;    // tiles along W
+  int n_blocks;   // output-channel blocks of NT
+  int n_tiles;    // tiles_x * tiles along H * n_blocks
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// generic-proxy writes to shared memory become visible to TMA
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, float v0,
+                                          float v1, bool bf16_out) {
+  if (bf16_out) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr),
+                 "r"(*reinterpret_cast<const uint32_t*>(&h))
+                 : "memory");
+  } else {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(v0),
+                 "f"(v1)
+                 : "memory");
   }
+}
 
-  for (int c0 = 0; c0 < C; c0 += kKC) {
-    __syncthreads();  // the last step's MMAs are done with both buffers
-    // weights: 9 taps x kKC input rows x NT output columns, 16-byte chunks
-    constexpr int kRowChunks = NT / 8;
-    for (int i = tid; i < 9 * kKC * kRowChunks; i += kThreads) {
-      const int row = i / kRowChunks;          // tap * kKC + r
-      const int chunk = i % kRowChunks;
-      const int tap = row / kKC;
-      const size_t off =
-          (static_cast<size_t>(tap) * C + c0 + row % kKC) * Cout + n0;
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(w + off) + chunk);
-      *reinterpret_cast<uint4*>(ws + row * T::kWLd + chunk * 8) = v;
-    }
-    // input halo: (kTH+2) x (kTW+2) pixels x kKC channels, zero outside
-    constexpr int kPixChunks = kKC / 8;
-    for (int i = tid; i < kHaloH * kHaloW * kPixChunks; i += kThreads) {
-      const int pix = i / kPixChunks;
-      const int chunk = i % kPixChunks;
-      const int p = p0 - 1 + pix / kHaloW;
-      const int q = q0 - 1 + pix % kHaloW;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (p >= 0 && p < H && q >= 0 && q < W) {
-        const size_t off = (static_cast<size_t>(p) * W + q) * C + c0;
-        v = __ldg(reinterpret_cast<const uint4*>(x + off) + chunk);
-      }
-      *reinterpret_cast<uint4*>(hs + pix * kHLd + chunk * 8) = v;
-    }
-    __syncthreads();
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
 
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap % 3;
-#pragma unroll
-      for (int ks = 0; ks < kKC / 16; ++ks) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-            b[4];
-        const bf16* wp = ws + (tap * kKC + ks * 16) * T::kWLd + warp_n * 64;
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          wmma::load_matrix_sync(b[n], wp + n * 16, T::kWLd);
-        }
-#pragma unroll
-        for (int r = 0; r < T::kRows; ++r) {
-          // output pixels (p0 + row, q0 + l), l < 16, read halo row
-          // row + dy, columns l + dx
-          const int row = warp_m * T::kRows + r;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              a;
-          wmma::load_matrix_sync(
-              a, hs + ((row + dy) * kHaloW + dx) * kHLd + ks * 16, kHLd);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            wmma::mma_sync(acc[r][n], a, b[n], acc[r][n]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with shared memory: reuse it
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
 
-  float* stage = reinterpret_cast<float*>(smem_raw) +
-                 warp * T::kRows * 16 * kStageLd;
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs
+template <int R>
+__device__ __forceinline__ void acc_fence(float (&d)[R]) {
 #pragma unroll
-  for (int r = 0; r < T::kRows; ++r) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::store_matrix_sync(stage + r * 16 * kStageLd + n * 16, acc[r][n],
-                              kStageLd, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-  const int px = lane >> 1;            // pixel of the 16-pixel row
-  const int c_half = (lane & 1) * 32;  // first of this lane's 32 channels
-  const int co = n0 + warp_n * 64 + c_half;
-#pragma unroll
-  for (int r = 0; r < T::kRows; ++r) {
-    const int p = p0 + warp_m * T::kRows + r;
-    const int q = q0 + px;
-    if (p >= H || q >= W) continue;
-    const size_t base = (static_cast<size_t>(p) * W + q) * Cout + co;
-    const float* src = stage + (r * 16 + px) * kStageLd + c_half;
-#pragma unroll
-    for (int j = 0; j < 32; j += 8) {
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        float t = src[j + u] + __ldg(bias + co + j + u);
-        if (RELU) t = fmaxf(t, 0.f);
-        v[u] = t;
-      }
-      if (OUT_BF16) {
-        __nv_bfloat162 h[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          h[u] = __floats2bfloat162_rn(v[2 * u], v[2 * u + 1]);
-        }
-        *reinterpret_cast<uint4*>(static_cast<bf16*>(y) + base + j) =
-            *reinterpret_cast<const uint4*>(h);
-      } else {
-        float4* o = reinterpret_cast<float4*>(static_cast<float*>(y) +
-                                              base + j);
-        o[0] = make_float4(v[0], v[1], v[2], v[3]);
-        o[1] = make_float4(v[4], v[5], v[6], v[7]);
-      }
-    }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, float32 registers) += A (64 x 16, K-major) * B (16 x N,
+// MN-major), both bf16 in shared memory; D is overwritten when scale_d is 0
+#define ACC8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32(i) ACC8(i), ACC8(i + 8), ACC8(i + 16), ACC8(i + 24)
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,"
+      "%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,"
+      "%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,"
+      "%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,"
+      "%120,%121,%122,%123,%124,%125,%126,%127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : ACC32(0), ACC32(32), ACC32(64), ACC32(96)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : ACC32(0), ACC32(32)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : ACC32(0)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef ACC32
+#undef ACC8
+
+template <int NT>
+__device__ __forceinline__ void wgmma_tile(float (&d)[NT / 2], uint64_t da,
+                                           uint64_t db, uint32_t scale_d) {
+  if constexpr (NT == 256) {
+    wgmma_n256(d, da, db, scale_d);
+  } else if constexpr (NT == 128) {
+    wgmma_n128(d, da, db, scale_d);
+  } else {
+    wgmma_n64(d, da, db, scale_d);
   }
 }
 
 template <int NT, bool OUT_BF16, bool RELU>
-int launch_t(const void* x, const void* w, const void* bias, void* y, int H,
-             int W, int C, int Cout, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const __grid_constant__ CUtensorMap ymap,
+                   const float* __restrict__ bias, const Shape s) {
+  using G = Cfg<NT>;
+  using O = Out<NT, OUT_BF16>;
+  extern __shared__ uint8_t smem_raw[];
+  // input ring, weight ring, staging, then the barriers: full and empty of
+  // each input slot, full and empty of each weight slot
+  const uint32_t aring =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
+      ~1023u;
+  const uint32_t bring = aring + G::kAStages * G::kABytes;
+  const uint32_t staging = bring + G::kBStages * G::kBBytes;
+  const uint32_t afull0 = staging + kConsumers * kOutBytes;
+  const uint32_t aempty0 = afull0 + 8 * G::kAStages;
+  const uint32_t bfull0 = aempty0 + 8 * G::kAStages;
+  const uint32_t bempty0 = bfull0 + 8 * G::kBStages;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < G::kAStages; ++i) {
+      mbar_init(afull0 + 8 * i, 1);
+      mbar_init(aempty0 + 8 * i, kConsumers * 4);
+    }
+    for (int i = 0; i < G::kBStages; ++i) {
+      mbar_init(bfull0 + 8 * i, 1);
+      mbar_init(bempty0 + 8 * i, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int chunks = s.C / kKC;
+  const int bw = 1 << s.bw_log2;
+  const int bh = G::kTileM >> s.bw_log2;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp >= kConsumers * 4) {
+    // producer warpgroup: one thread issues every load, in the consumers'
+    // order: per chunk and dx an input box, then its three dy taps' weights
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == kConsumers * 128) {
+      const uint32_t a_bytes = (bh + 2) * bw * 128;
+      int as = 0, bs = 0;
+      uint32_t aph = 0, bph = 0;
+      for (int t = blockIdx.x; t < s.n_tiles; t += gridDim.x) {
+        const int m = t / s.n_blocks;
+        const int n0 = (t % s.n_blocks) * NT;
+        const int p0 = (m / s.tiles_x) * bh;
+        const int q0 = (m % s.tiles_x) * bw;
+        for (int ch = 0; ch < chunks; ++ch) {
+          const int c0 = ch * kKC;
+          for (int dx = 0; dx < 3; ++dx) {
+            mbar_wait(aempty0 + 8 * as, aph ^ 1);
+            mbar_expect_tx(afull0 + 8 * as, a_bytes);
+            tma_load_3d(aring + as * G::kABytes, &xmap, afull0 + 8 * as, c0,
+                        q0 + dx - 1, p0 - 1);
+            if (++as == G::kAStages) {
+              as = 0;
+              aph ^= 1;
+            }
+            for (int dy = 0; dy < 3; ++dy) {
+              const uint32_t full = bfull0 + 8 * bs;
+              mbar_wait(bempty0 + 8 * bs, bph ^ 1);
+              mbar_expect_tx(full, G::kBBytes);
+#pragma unroll
+              for (int j = 0; j < NT / 64; ++j) {
+                tma_load_2d(bring + bs * G::kBBytes + j * kBBoxBytes, &wmap,
+                            full, n0 + 64 * j, (3 * dy + dx) * s.C + c0);
+              }
+              if (++bs == G::kBStages) {
+                bs = 0;
+                bph ^= 1;
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // warpgroup wg owns the tile's 64-row blocks wg MB ... wg MB + MB - 1
+    const int wg = warp >> 2;
+    const int lane = threadIdx.x & 31;
+    float acc[G::kMB][NT / 2];
+#pragma unroll
+    for (int mb = 0; mb < G::kMB; ++mb) {
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) acc[mb][i] = 0.f;
+    }
+    int as = 0, bs = 0;
+    uint32_t aph = 0, bph = 0;
+    for (int t = blockIdx.x; t < s.n_tiles; t += gridDim.x) {
+      const int m = t / s.n_blocks;
+      const int n0 = (t % s.n_blocks) * NT;
+      const int p0 = (m / s.tiles_x) * bh;
+      const int q0 = (m % s.tiles_x) * bw;
+      // slots whose MMAs may still be in flight: released once the next
+      // step's wait shows them done (-1: none)
+      int held_b = -1, held_a = -1;
+      for (int ch = 0; ch < chunks; ++ch) {
+        for (int dx = 0; dx < 3; ++dx) {
+          mbar_wait(afull0 + 8 * as, aph);
+          for (int dy = 0; dy < 3; ++dy) {
+            mbar_wait(bfull0 + 8 * bs, bph);
+            // tap (dy, dx) reads the box from its row dy on
+            const uint32_t a = aring + as * G::kABytes +
+                               (dy * bw + wg * G::kMB * 64) * 128;
+            const uint32_t b = bring + bs * G::kBBytes;
+#pragma unroll
+            for (int mb = 0; mb < G::kMB; ++mb) acc_fence(acc[mb]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kKC / 16; ++kk) {
+              // A: 16 channels = 32 bytes along the swizzled row; 8-row
+              // groups 1 KB apart.  B: 16 weight rows = 2 KB down the box;
+              // 64-column boxes kBBoxBytes apart, 8-row groups 1 KB apart.
+              const uint64_t db =
+                  sw128_desc(b + 2048 * kk, kBBoxBytes, 1024);
+#pragma unroll
+              for (int mb = 0; mb < G::kMB; ++mb) {
+                wgmma_tile<NT>(acc[mb],
+                               sw128_desc(a + mb * kBlockBytes + 32 * kk, 16,
+                                          1024),
+                               db, (ch | dx | dy | kk) != 0);
+              }
+            }
+            wgmma_commit();
+#pragma unroll
+            for (int mb = 0; mb < G::kMB; ++mb) acc_fence(acc[mb]);
+            if (held_b >= 0) {
+              wgmma_wait<1>();   // the previous step's MMAs are done
+              if (lane == 0) {
+                mbar_arrive(bempty0 + 8 * held_b);
+                if (held_a >= 0) mbar_arrive(aempty0 + 8 * held_a);
+              }
+            }
+            held_b = bs;
+            held_a = dy == 2 ? as : -1;
+            if (++bs == G::kBStages) {
+              bs = 0;
+              bph ^= 1;
+            }
+          }
+          if (++as == G::kAStages) {
+            as = 0;
+            aph ^= 1;
+          }
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mb = 0; mb < G::kMB; ++mb) acc_fence(acc[mb]);
+      if (lane == 0) {
+        mbar_arrive(bempty0 + 8 * held_b);
+        mbar_arrive(aempty0 + 8 * held_a);
+      }
+
+      // epilogue.  Accumulator (16 wi + lane / 4 + 8 h, 8 j + 2 (lane % 4)
+      // + {0, 1}) of warp wi in block mb is pixel rr = 16 wi + lane / 4 +
+      // 8 h of the tile's 64-row block ib = wg MB + mb: tile rows 64 ib +
+      // rr, a (64 / wb) x wb block of the image (wb = min(BW, 64)).  Flat
+      // chunk f = mb kChunks + c of the warpgroup holds block mb's output
+      // channels n0 + c kCols ... for its 64 pixels, one swizzled 128-byte
+      // row each, as the TMA store reads them; a pass stages kPerPass.
+      const uint32_t out = staging + wg * kOutBytes;
+      const int cq = n0 + 2 * (lane & 3);
+      const bool leader = (threadIdx.x & 127) == 0;
+#pragma unroll
+      for (int pass = 0; pass < O::kPasses; ++pass) {
+        if (leader) bulk_wait_read();   // the last stores left the buffer
+        warpgroup_sync(1 + wg);
+#pragma unroll
+        for (int mb = 0; mb < G::kMB; ++mb) {
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            const int f = mb * O::kChunks + (8 * j) / O::kCols;
+            if (f / O::kPerPass != pass) continue;
+            const float2 bb =
+                __ldg(reinterpret_cast<const float2*>(bias + cq + 8 * j));
+            // 16-byte group of this lane's two values in the 128-byte row
+            const int g =
+                OUT_BF16 ? j % 8 : 2 * (j % 4) + ((lane & 3) >> 1);
+            const int in_g = OUT_BF16 ? 4 * (lane & 3) : 8 * (lane & 1);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int rr = (warp & 3) * 16 + (lane >> 2) + 8 * h;
+              float v0 = acc[mb][4 * j + 2 * h] + bb.x;
+              float v1 = acc[mb][4 * j + 2 * h + 1] + bb.y;
+              if (RELU) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              }
+              st_shared(out + (f % O::kPerPass) * kBlockBytes + rr * 128 +
+                            ((g ^ (rr & 7)) << 4) + in_g,
+                        v0, v1, OUT_BF16);
+            }
+          }
+        }
+        fence_async_shared();
+        warpgroup_sync(1 + wg);
+        if (leader) {
+          for (int i = 0; i < O::kPerPass; ++i) {
+            const int f = pass * O::kPerPass + i;
+            if (f >= G::kMB * O::kChunks) break;
+            const int r = 64 * (wg * G::kMB + f / O::kChunks);  // tile row
+            tma_store_3d(&ymap, out + i * kBlockBytes,
+                         n0 + (f % O::kChunks) * O::kCols,
+                         q0 + (r & (bw - 1)), p0 + (r >> s.bw_log2));
+          }
+          bulk_commit();
+        }
+      }
+    }
+    if ((threadIdx.x & 127) == 0) bulk_wait();
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver once
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The SMs of device dev (< 64), asked once per process.
+int sm_count(int dev) {
+  static int counts[64] = {0};
+  if (dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) {
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  }
+  return counts[dev];
+}
+
+template <int NT, bool OUT_BF16, bool RELU>
+int launch_t(const CUtensorMap& xmap, const CUtensorMap& wmap,
+             const CUtensorMap& ymap, const float* bias, const Shape& s,
+             int dev, cudaStream_t stream) {
   auto kernel = conv3x3_kernel<NT, OUT_BF16, RELU>;
-  const int smem = static_cast<int>(Tile<NT>::kSmemBytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW), Cout / NT);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), y, H, W, C, Cout);
+  const int smem = static_cast<int>(Cfg<NT>::kSmem);
+  // the devices (a bit each) on which the kernel may use that much shared
+  // memory: granted once per process
+  static uint64_t granted = 0;
+  if (!(granted >> dev & 1)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted |= 1ull << dev;
+  }
+  const int sms = sm_count(dev);
+  const int grid = s.n_tiles < sms ? s.n_tiles : sms;
+  kernel<<<grid, kThreads, smem, stream>>>(xmap, wmap, ymap, bias, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -235,12 +613,78 @@ int launch(const void* x, const void* w, const void* bias, void* y, int H,
   if (H < 1 || W < 1 || C < kKC || C % kKC || Cout < NT || Cout % NT) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (out_bf16) {
-    return relu ? launch_t<NT, true, true>(x, w, bias, y, H, W, C, Cout, st)
-                : launch_t<NT, true, false>(x, w, bias, y, H, W, C, Cout, st);
+  const EncodeTiled encode = encode_tiled();
+  int dev = 0;
+  if (encode == nullptr || cudaGetDevice(&dev) != cudaSuccess || dev >= 64 ||
+      sm_count(dev) < 1) {
+    return static_cast<int>(cudaErrorNotSupported);
   }
-  return relu ? launch_t<NT, false, true>(x, w, bias, y, H, W, C, Cout, st)
-              : launch_t<NT, false, false>(x, w, bias, y, H, W, C, Cout, st);
+  // the tile width that leaves the fewest tiles (ties: the narrower, whose
+  // input boxes carry fewer halo rows)
+  constexpr int kTileM = Cfg<NT>::kTileM;
+  Shape s{H, W, C, Cout, 3, 0, Cout / NT, 0};
+  long best = -1;
+  for (int lg = 3; lg <= 6; ++lg) {
+    const long bw = 1L << lg, bh = kTileM >> lg;
+    const long n = ((W + bw - 1) / bw) * ((H + bh - 1) / bh);
+    if (best < 0 || n < best) {
+      best = n;
+      s.bw_log2 = lg;
+    }
+  }
+  s.tiles_x = (W + (1 << s.bw_log2) - 1) >> s.bw_log2;
+  s.n_tiles = static_cast<int>(best) * s.n_blocks;
+
+  CUtensorMap xmap, wmap, ymap;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint64_t xdims[3] = {static_cast<cuuint64_t>(C),
+                               static_cast<cuuint64_t>(W),
+                               static_cast<cuuint64_t>(H)};
+  const cuuint64_t xstrides[2] = {static_cast<cuuint64_t>(C) * 2,
+                                  static_cast<cuuint64_t>(W) * C * 2};
+  const cuuint32_t xbox[3] = {
+      kKC, static_cast<cuuint32_t>(1 << s.bw_log2),
+      static_cast<cuuint32_t>((kTileM >> s.bw_log2) + 2)};
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(Cout),
+                               static_cast<cuuint64_t>(9) * C};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(Cout) * 2};
+  const cuuint32_t wbox[2] = {64, kKC};
+  // y: a 64-row block's pixels x one 128-byte row of channels
+  const cuuint64_t ysize = out_bf16 ? 2 : 4;
+  const cuuint64_t ydims[3] = {static_cast<cuuint64_t>(Cout),
+                               static_cast<cuuint64_t>(W),
+                               static_cast<cuuint64_t>(H)};
+  const cuuint64_t ystrides[2] = {static_cast<cuuint64_t>(Cout) * ysize,
+                                  static_cast<cuuint64_t>(W) * Cout * ysize};
+  const cuuint32_t ybox[3] = {static_cast<cuuint32_t>(128 / ysize),
+                              static_cast<cuuint32_t>(1 << s.bw_log2),
+                              static_cast<cuuint32_t>(64 >> s.bw_log2)};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(x), xdims, xstrides, xbox, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(w), wdims, wstrides, wbox, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&ymap,
+             out_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             3, y, ydims, ystrides, ybox, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* b = static_cast<const float*>(bias);
+  if (out_bf16) {
+    return relu ? launch_t<NT, true, true>(xmap, wmap, ymap, b, s, dev, st)
+                : launch_t<NT, true, false>(xmap, wmap, ymap, b, s, dev, st);
+  }
+  return relu ? launch_t<NT, false, true>(xmap, wmap, ymap, b, s, dev, st)
+              : launch_t<NT, false, false>(xmap, wmap, ymap, b, s, dev, st);
 }
 
 }  // namespace
@@ -253,6 +697,10 @@ extern "C" int conv3x3_p128(const void* x, const void* w, const void* bias,
                             void* y, int H, int W, int C, int Cout, int relu,
                             int out_bf16, void* stream) {
   if (C % 128 || Cout % 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (Cout % 256 == 0) {
+    return launch<256>(x, w, bias, y, H, W, C, Cout, relu, out_bf16,
+                       stream);
+  }
   return launch<128>(x, w, bias, y, H, W, C, Cout, relu, out_bf16, stream);
 }
 
@@ -264,4 +712,21 @@ extern "C" int packed_conv3x3(const void* xp, const void* w,
                               int relu, int out_bf16, void* stream) {
   return launch<64>(xp, w, bias, y, H, 2 * W2, 64, 64, relu, out_bf16,
                     stream);
+}
+
+// Dynamic shared memory of the kernel with NT-channel output tiles (64,
+// 128 or 256): 1 KB of alignment slack, the two TMA rings, the two staging
+// buffers and the barriers; -1 for another NT.  ptxas reports only static
+// shared memory, which the kernel does not use.
+extern "C" int conv3x3_smem_bytes(int nt) {
+  switch (nt) {
+    case 64:
+      return static_cast<int>(Cfg<64>::kSmem);
+    case 128:
+      return static_cast<int>(Cfg<128>::kSmem);
+    case 256:
+      return static_cast<int>(Cfg<256>::kSmem);
+    default:
+      return -1;
+  }
 }

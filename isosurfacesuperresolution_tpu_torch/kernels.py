@@ -5,7 +5,9 @@ with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds).  Libraries go to ``build/cuda/`` at the repository
 root, named by a hash of the source and flags, and are written under a
 temporary name and renamed, so concurrent processes never load a partial
-file.  Nothing is built when a module is imported: the first launch (or
+file.  Each library's compiler output (with ``-Xptxas -v``: registers,
+spills and static shared memory of every kernel) is kept beside it as
+``.log``.  Nothing is built when a module is imported: the first launch (or
 `build`) does it.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -92,11 +95,46 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if p.returncode != 0:
             failed.append(f"{n}: nvcc exited {p.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         done[n] = {"seconds": time.time() - t0, "log": log}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return done
+
+
+def build_log(name: str) -> str:
+    """The compiler output of kernel ``name``'s current library, as its
+    build kept it ("" if it was not built here)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
+
+
+def ptxas_usage(log: str) -> list:
+    """Per kernel entry in an ``nvcc -Xptxas -v`` log: ``{"entry": mangled
+    name, "registers", "spill_stores", "spill_loads", "stack",
+    "static_smem"}`` (bytes), in the log's order."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"entry": m.group(1), "registers": 0, "spill_stores": 0,
+                   "spill_loads": 0, "stack": 0, "static_smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -115,7 +115,7 @@ def packed_conv3x3_kernel(xp: torch.Tensor, k3: torch.Tensor,
     y = torch.empty((1, H, W2, C2), dtype=out_dtype, device=dev)
     err = fn(xp.data_ptr(), k3.data_ptr(), bias.data_ptr(), y.data_ptr(),
              H, W2, int(relu), int(out_dtype == _BF16),
-             torch.cuda.current_stream(dev).cuda_stream)
+             pallas_conv.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"packed_conv3x3 launch failed: CUDA error {err}")
     packed_conv3x3_kernel.launches += 1
@@ -140,7 +140,7 @@ def packed_conv3x3(xp: torch.Tensor, k3: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"packed_conv3x3 runs on cuda or cpu tensors, not "
                          f"{dev}")
     pallas_conv.kernel_fn("packed_conv3x3")   # raises without a library
-    return packed_conv3x3_kernel(
-        pallas_conv.aligned16(xp.to(_BF16)), pallas_conv.aligned16(
-            k3.to(_BF16)), pallas_conv.aligned16(bias.to(_F32)), relu,
-        out_dtype)
+    return packed_conv3x3_kernel(pallas_conv.aligned16(xp, _BF16),
+                                 pallas_conv.aligned16(k3, _BF16),
+                                 pallas_conv.aligned16(bias, _F32), relu,
+                                 out_dtype)

@@ -125,11 +125,21 @@ def conv3x3_p128_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return z[None].to(out_dtype)
 
 
-def aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous with a 16-byte aligned start (the kernel's vector
-    loads), copied if it is not."""
+def aligned16(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, contiguous, with a 16-byte aligned start (the
+    tensor maps' requirement), converted or copied only where it is not."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def raw_stream(dev: torch.device) -> int:
+    """``dev``'s current CUDA stream as the C entries take it.  PyTorch's
+    raw-stream query takes a fraction of a microsecond; building a
+    `torch.cuda.Stream` to read its ``cuda_stream`` takes several, which
+    a chain of short convs pays on every call."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def kernel_fn(name: str):
@@ -173,7 +183,7 @@ def conv3x3_p128_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((1, H, W, cout), dtype=out_dtype, device=dev)
     err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), H, W,
              C, cout, int(relu), int(out_dtype == _BF16),
-             torch.cuda.current_stream(dev).cuda_stream)
+             raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"conv3x3_p128 launch failed: CUDA error {err}")
     conv3x3_p128_kernel.launches += 1
@@ -198,9 +208,8 @@ def conv3x3_pallas_p128(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"conv3x3_pallas_p128 runs on cuda or cpu tensors, "
                          f"not {dev}")
     kernel_fn("conv3x3_p128")   # raises when the library cannot be built
-    return conv3x3_p128_kernel(aligned16(x.to(_BF16)),
-                               aligned16(w.to(_BF16)),
-                               aligned16(b.to(_F32)), relu, out_dtype)
+    return conv3x3_p128_kernel(aligned16(x, _BF16), aligned16(w, _BF16),
+                               aligned16(b, _F32), relu, out_dtype)
 
 
 def conv3x3_packed(x: torch.Tensor, w: torch.Tensor,

@@ -15,8 +15,10 @@ The port of the JAX package's `scripts/profile_pallas.py` and
 Each is printed beside cuDNN computing the same function: `F.conv2d` in
 bf16 on channels-last tensors (the chain: conv then ReLU, 20 times).  The
 JAX scripts' sweeps over the TPU band height have no counterpart.  Times
-are the median of ``--reps`` CUDA-event timings after a warm-up call, with
-the card's name and power limit.
+are the median of ``--reps`` CUDA-event timings after a warm-up call, each
+call enqueued behind a spin of a few milliseconds so that the card runs it
+without waiting for the host (device time, the host's launch cost
+excluded), with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -85,12 +87,15 @@ def cudnn_weight(w: torch.Tensor) -> torch.Tensor:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``reps`` calls after one warm-up call."""
+    """Median device milliseconds of ``reps`` calls after one warm-up call,
+    each behind a spin (about 5 ms) that keeps the card busy while the host
+    enqueues it."""
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(10_000_000)
         a.record()
         fn()
         b.record()

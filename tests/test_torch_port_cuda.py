@@ -275,10 +275,17 @@ def _conv_close(got, want, out):
 @pytest.mark.parametrize("c,cout,h,w", [(128, 128, 11, 24),
                                         (256, 128, 9, 40),
                                         (128, 256, 5, 16),
-                                        (256, 256, 17, 8)])
+                                        (256, 256, 17, 8),
+                                        (128, 128, 96, 512),
+                                        (128, 128, 1, 40),
+                                        (384, 384, 7, 16),
+                                        (256, 256, 72, 256)])
 def test_conv3x3_p128_kernel_matches_plain(c, cout, h, w, relu, out):
-    """B6: partial 8 x 16 tiles on both axes, one and two 128-channel
-    output blocks."""
+    """B6: partial tiles on both axes, one and two 128-channel output
+    blocks; then the persistent kernel's edges: more tiles than an H100
+    has SMs (192 of 256 pixels x 128 channels; 144 of 128 pixels x 256
+    channels), so blocks walk several; one image row in a single partial
+    tile; 384 -> 384 as three 128-channel blocks."""
     _need_card()
     x, wt, b = _conv_case(c + cout + h, (1, h, w, c), cout)
     odt = getattr(torch, out)
@@ -295,9 +302,10 @@ def test_conv3x3_p128_kernel_matches_plain(c, cout, h, w, relu, out):
 @pytest.mark.cuda
 @pytest.mark.parametrize("out", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu", [False, True])
-@pytest.mark.parametrize("h,w2", [(11, 12), (6, 40), (3, 8)])
+@pytest.mark.parametrize("h,w2", [(11, 12), (6, 40), (3, 8), (9, 240)])
 def test_packed_conv3x3_kernel_matches_plain(h, w2, relu, out):
-    """B7 on the packed memory: unpacked widths 24, 80 and 16."""
+    """B7 on the packed memory: unpacked widths 24, 80, 16 and the
+    trunk's 480."""
     _need_card()
     x, k3, b = _conv_case(h + w2, (1, h, w2, 128), 64)
     k3 = k3[:, :, :64]
@@ -310,6 +318,39 @@ def test_packed_conv3x3_kernel_matches_plain(h, w2, relu, out):
     assert got.dtype == odt and got.shape == (1, h, w2, 128)
     _conv_close(got, PK.packed_conv3x3_plain(x, k3, b, relu=relu,
                                              out_dtype=odt), out)
+
+
+@pytest.mark.cuda
+def test_conv_kernels_launch_on_the_current_stream():
+    """B6 and B7 launched under a side stream run on it: each reads an
+    input that the side stream fills only after a long sleep, into a
+    buffer that holds NaN until then, so a launch on any other stream
+    would read NaN."""
+    _need_card()
+    x6, w6, b6 = _conv_case(6, (1, 9, 40, 128), 128)
+    x7, k7, b7 = _conv_case(7, (1, 9, 40, 128), 64)
+    k7 = k7[:, :, :64]
+    buf6 = torch.full(x6.shape, float("nan"), dtype=torch.bfloat16,
+                      device="cuda")
+    buf7 = torch.full(x7.shape, float("nan"), dtype=torch.bfloat16,
+                      device="cuda")
+    src6, src7 = x6.cuda().to(torch.bfloat16), x7.cuda().to(torch.bfloat16)
+    w6c, b6c = w6.cuda().to(torch.bfloat16), b6.cuda()
+    k7c, b7c = k7.cuda().to(torch.bfloat16), b7.cuda()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        buf6.copy_(src6)
+        y6 = PC.conv3x3_pallas_p128(buf6, w6c, b6c, relu=True)
+        torch.cuda._sleep(100_000_000)
+        buf7.copy_(src7)
+        y7 = PK.packed_conv3x3(buf7, k7c, b7c, relu=True)
+    side.synchronize()
+    _conv_close(y6, PC.conv3x3_p128_plain(x6, w6, b6, relu=True),
+                "bfloat16")
+    _conv_close(y7, PK.packed_conv3x3_plain(x7, k7, b7, relu=True),
+                "bfloat16")
 
 
 @pytest.mark.cuda

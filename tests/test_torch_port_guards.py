@@ -398,3 +398,50 @@ def test_nvcc_flags_are_per_source(monkeypatch):
     monkeypatch.setitem(kernels.SOURCES, "phase_conv",
                         ("phase_conv.cu", ["--fmad=false"]))
     assert kernels.library_path("phase_conv") != b
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aILi256ELb1ELb0EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1aILi256ELb1ELb0EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    24 bytes stack frame, 36 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 80 registers, 16384 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_each_entry():
+    """Registers, spills, stack and static shared memory per kernel entry
+    of an ``-Xptxas -v`` log, in the log's order."""
+    a, b = kernels.ptxas_usage(_PTXAS_LOG)
+    assert a == {"entry": "_Z1aILi256ELb1ELb0EEvv", "registers": 168,
+                 "spill_stores": 0, "spill_loads": 0, "stack": 0,
+                 "static_smem": 0}
+    assert b == {"entry": "_Z1bv", "registers": 80, "spill_stores": 36,
+                 "spill_loads": 40, "stack": 24, "static_smem": 16384}
+    assert kernels.ptxas_usage("") == []
+
+
+def test_build_keeps_the_compiler_log(monkeypatch, tmp_path):
+    """`build` keeps each library's compiler output beside it, and
+    `build_log` reads it back ("" before a build)."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\n'
+                    'while [ $# -gt 0 ]; do\n'
+                    '  if [ "$1" = "-o" ]; then out="$2"; fi; shift\n'
+                    'done\n'
+                    'printf "%s" "$LOG"\n'
+                    ': > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "cuda")
+    monkeypatch.setenv("LOG", _PTXAS_LOG)
+    assert kernels.build_log("conv3x3") == ""
+    done = kernels.build(["conv3x3"])
+    assert done["conv3x3"]["log"] == _PTXAS_LOG
+    assert kernels.library_path("conv3x3").is_file()
+    assert kernels.build_log("conv3x3") == _PTXAS_LOG
+    assert kernels.build(["conv3x3"]) == {}     # built: nothing to do
