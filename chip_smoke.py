@@ -8,14 +8,17 @@ seconds; any failure ends the run with a non-zero exit code:
 
 1. versions and the card (`nvidia-smi` name and power limit);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
-   source, started together), and print each 3x3 conv instantiation's
-   registers, spills and shared memory from the ``-Xptxas -v`` log (any
-   spill fails the run);
+   source, started together), and print each conv instantiation's
+   registers, spills and shared memory from the ``-Xptxas -v`` log (the
+   3x3 convs and the phase conv; any spill fails the run);
 3. each kernel vs its plain PyTorch version on the card at the shapes of
    the interactive frame, with stated bounds, and their times: the march
    (256^3 blobs, 480x270, oversample 1.25: K = 512 slices, Sn x Tn =
-   600 x 338) without and with the baked AO field, and the phase conv at
-   (1, 540, 960, 256) with the trained post3 weights;
+   600 x 338) without and with the baked AO field, and the phase conv (B5)
+   at (1, 540, 960, 256) with the trained post3 weights, bf16 and float32
+   out: B5 and cuDNN (`F.conv2d` bf16 on the shuffled tensor) timed in
+   turns behind a queued backlog, with B5's TFLOP/s, share of its bound,
+   idle-queue time and the host microseconds of a call;
 4. the non-planar fused frame (`FusedFrame(..., planar="off")`): the
    trained 10x64 EnhanceNet (artifacts/run00017) at 480x270 -> 1920x1080,
    renderer "sweep_pallas", bf16 sweep, 10 orbit frames stepping the angle
@@ -117,7 +120,6 @@ BF16_TC_OPS_PER_S = 989e12
 PKG = "isosurfacesuperresolution_tpu_torch"
 MARCH_SOURCE = f"{PKG}/csrc/sweep_march.cu"
 MARCH_REPLACES = "isosurfacesuperresolution_tpu/render/sweep_pallas.py:46"
-PHASE_SOURCE = f"{PKG}/csrc/phase_conv.cu"
 PHASE_REPLACES = "isosurfacesuperresolution_tpu/ops/phase_conv.py:245"
 TILED_REPLACES = ("isosurfacesuperresolution_tpu/render/"
                   "sweep_pallas_tiled.py:54")
@@ -233,34 +235,55 @@ def host_us(fn, n: int = 200) -> float:
     return dt
 
 
+def _out(bf16: str) -> str:
+    return "bf16 out" if bf16 == "1" else "float32 out"
+
+
+def _relu(relu: str) -> str:
+    return "ReLU" if relu == "1" else "no ReLU"
+
+
+# the conv library's kernel templates: name, ptxas entry pattern, the
+# instantiations expected, a label, the dynamic shared memory entry and its
+# arguments
+CONV_ENTRIES = (
+    ("conv3x3_kernel", r"conv3x3_kernelILi(\d+)ELb([01])ELb([01])E", 12,
+     lambda g: f"conv3x3_kernel<{g[0]}, {_out(g[1])}, {_relu(g[2])}>",
+     "conv3x3_smem_bytes", lambda g: (int(g[0]),)),
+    ("phase_conv_kernel", r"phase_conv_kernelILb([01])ELb([01])E", 4,
+     lambda g: f"phase_conv_kernel<{_out(g[0])}, {_relu(g[1])}>",
+     "phase_conv_smem_bytes", lambda g: ()))
+
+
 def conv_usage(kernels) -> list:
     """Phase 2's figures for the conv library, one line per instantiation
-    of `conv3x3_kernel<NT, OUT_BF16, RELU>`: registers, spill bytes and
-    stack from the ``-Xptxas -v`` log, static shared memory from it and
-    the dynamic shared memory the library launches with.  Raises on a
-    missing log, a missing instantiation or any spill."""
+    of `conv3x3_kernel<NT, OUT_BF16, RELU>` and `phase_conv_kernel<OUT_BF16,
+    RELU>`: registers, spill bytes and stack from the ``-Xptxas -v``
+    log, static shared memory from it and the dynamic shared memory the
+    library launches with.  Raises on a missing log, a missing
+    instantiation or any spill."""
     import ctypes
     lib = kernels.load("conv3x3")
-    lib.conv3x3_smem_bytes.argtypes = [ctypes.c_int]
-    lib.conv3x3_smem_bytes.restype = ctypes.c_int
-    usage = [u for u in kernels.ptxas_usage(kernels.build_log("conv3x3"))
-             if "conv3x3_kernel" in u["entry"]]
-    if len(usage) != 12:
-        raise RuntimeError(f"the conv library's ptxas log lists "
-                           f"{len(usage)} kernels, expected 12")
+    usage = kernels.ptxas_usage(kernels.build_log("conv3x3"))
     lines = []
-    for u in usage:
-        nt, ob, relu = re.search(r"conv3x3_kernelILi(\d+)ELb([01])ELb([01])E",
-                                 u["entry"]).groups()
-        lines.append(
-            f"conv3x3_kernel<{nt}, {'bf16' if ob == '1' else 'float32'} "
-            f"out, {'ReLU' if relu == '1' else 'no ReLU'}>: "
-            f"{u['registers']} registers at launch, spill stores "
-            f"{u['spill_stores']} B, spill loads {u['spill_loads']} B, "
-            f"stack {u['stack']} B, shared memory {u['static_smem']} B "
-            f"static + {lib.conv3x3_smem_bytes(int(nt))} B dynamic")
-        if u["spill_stores"] or u["spill_loads"]:
-            raise RuntimeError(f"spills in {lines[-1]}")
+    for name, pattern, count, label, smem_entry, smem_args in CONV_ENTRIES:
+        smem = getattr(lib, smem_entry)
+        smem.restype = ctypes.c_int     # its int arguments pass as c_int
+        found = [(u, re.search(pattern, u["entry"]).groups())
+                 for u in usage if name in u["entry"]]
+        if len(found) != count:
+            raise RuntimeError(f"the conv library's ptxas log lists "
+                               f"{len(found)} {name} entries, expected "
+                               f"{count}")
+        for u, g in found:
+            lines.append(
+                f"{label(g)}: {u['registers']} registers at launch, spill "
+                f"stores {u['spill_stores']} B, spill loads "
+                f"{u['spill_loads']} B, stack {u['stack']} B, shared memory "
+                f"{u['static_smem']} B static + {smem(*smem_args(g))} B "
+                f"dynamic")
+            if u["spill_stores"] or u["spill_loads"]:
+                raise RuntimeError(f"spills in {lines[-1]}")
     return lines
 
 
@@ -730,22 +753,30 @@ def main() -> int:
             1, 64, 2 * H, 2 * W).contiguous()      # the shuffled input
         w_lib = k3.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
         b_lib = b3.to(torch.bfloat16)
-        # the library call in both memory formats; the faster one is kept
+        # the library call in both memory formats, behind a backlog; the
+        # faster one is timed in turns with the kernel
         lib = {}
         for fmt in ("contiguous_format", "channels_last"):
             mf = getattr(torch, fmt)
             xs_f = xs.contiguous(memory_format=mf)
             w_f = w_lib.contiguous(memory_format=mf)
-            lib[fmt] = time_cuda(
-                lambda: F.conv2d(xs_f, w_f, b_lib, padding=1), 7)
-            del xs_f
-        lib_fmt = min(lib, key=lib.get)
-        lib_ms = lib[lib_fmt]
+            lib[fmt] = (statistics.median(time_samples(
+                lambda: F.conv2d(xs_f, w_f, b_lib, padding=1), 7,
+                backlog=True)), xs_f, w_f)
+        lib_fmt = min(lib, key=lambda k: lib[k][0])
+        _, xs_f, w_f = lib[lib_fmt]
         log(f"[phase_conv] library: F.conv2d bf16 with bias on the shuffled "
-            f"(1, 64, 1080, 1920) tensor (shuffle excluded): "
-            + ", ".join(f"{k} {v:.3f} ms" for k, v in lib.items())
-            + f"; library_ms is the {lib_fmt} time")
-        del xs
+            f"(1, 64, 1080, 1920) tensor (shuffle excluded; no ReLU), "
+            f"behind a backlog: "
+            + ", ".join(f"{k} {v[0]:.4f} ms" for k, v in lib.items())
+            + f"; {lib_fmt} is timed in turns with the kernel")
+        del lib, xs
+
+        def lib_fn():
+            return F.conv2d(xs_f, w_f, b_lib, padding=1)
+
+        wr, b4 = pc.kernel_operands(k3, b3)
+        flops = 2.0 * (2 * H) * (2 * W) * 64 * 64 * 9
         for out in ("bfloat16", "float32"):
             odt = getattr(torch, out)
             got = pc.phase_conv3x3_amajor_blocked(x, k3, b3, relu=True,
@@ -765,19 +796,38 @@ def main() -> int:
             if not ok:
                 raise RuntimeError(f"phase_conv disagrees with its plain "
                                    f"version ({out})")
-            ms = time_cuda(lambda: pc.phase_conv3x3_amajor_blocked(
-                x, k3, b3, relu=True, out_dtype=odt), 7)
+
+            def kern(odt=odt):
+                return pc.phase_conv_kernel(x, wr, b4, True, odt)
+
+            ms, lib_ms, k_turns, lib_turns = time_turns(kern, lib_fn, 7)
+            idle_ms = time_cuda(kern, 7)
             plain_ms = time_cuda(lambda: pc.phase_conv_plain(
                 x, k3, b3, relu=True, out_dtype=odt), 3)
             bound, bound_by = phase_bound_ms(H, W, got.element_size())
-            log(f"[phase_conv {out}] kernel {ms:.3f} ms (median of 7), "
-                f"plain {plain_ms:.2f} ms (median of 3), bound "
-                f"{bound:.4f} ms by {bound_by}, library {lib_ms:.3f} ms")
+            log(f"[phase_conv {out}] kernel {ms:.4f} ms (turns "
+                f"{k_turns[0]:.4f}, {k_turns[1]:.4f}; 7 calls each behind a "
+                f"backlog; {flops / ms / 1e9:.1f} TFLOP/s), {bound / ms:.3f} "
+                f"of its bound {bound:.4f} ms by {bound_by}; plain "
+                f"{plain_ms:.2f} ms (median of 3); library {lib_ms:.4f} ms "
+                f"(turns {lib_turns[0]:.4f}, {lib_turns[1]:.4f}); kernel / "
+                f"library {ms / lib_ms:.2f}; single calls from an idle "
+                f"queue, host launch included: {idle_ms:.4f} ms")
             rows[f"phase_conv {out}"] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound, "bound_by": bound_by,
                 "library_ms": lib_ms}
-        del x, got, want, d
+            del got, want, d
+
+        wrap_us = host_us(lambda: pc.phase_conv(x, k3, b3, relu=True))
+        entry_us = host_us(lambda: pc.phase_conv_kernel(
+            x, wr, b4, True, torch.bfloat16))
+        log(f"[phase_conv] host time of one call while the card is busy "
+            f"(mean of 200, no sync): the wrapper `phase_conv` "
+            f"{wrap_us:.1f} us, its launch entry `phase_conv_kernel` "
+            f"{entry_us:.1f} us, against the kernel's "
+            f"{rows['phase_conv bfloat16']['ms'] * 1e3:.1f} us on the card")
+        del x, xs_f, w_f, wr, b4
 
     path_launches = {k: 0 for k in counters}
 
@@ -1559,7 +1609,7 @@ def main() -> int:
             ("sweep_march_ao", MARCH_SOURCE,
              "isosurfacesuperresolution_tpu/render/sweep_pallas.py:163",
              rows["bfloat16 AO"]),
-            ("phase_conv", PHASE_SOURCE, PHASE_REPLACES,
+            ("phase_conv", CONV_SOURCE, PHASE_REPLACES,
              rows["phase_conv bfloat16"]),
             ("sweep_march_tiled", MARCH_SOURCE, TILED_REPLACES,
              rows["tiled"]),

@@ -28,9 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "cuda"
 # kernel name -> (source, its own nvcc flags).  The march keeps every
 # product and sum separately rounded (--fmad=false), as in the reference's
 # elementwise arithmetic; the convolutions' bf16 products are exact in
-# float32, so they need no such flag.
+# float32, so they need no such flag.  conv3x3.cu holds B5, B6 and B7.
 SOURCES = {"sweep_march": ("sweep_march.cu", ["--fmad=false"]),
-           "phase_conv": ("phase_conv.cu", []),
            "conv3x3": ("conv3x3.cu", [])}
 # flags of every source; -Xptxas -v reports registers/spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -148,8 +148,8 @@ def kernel_fn(name: str):
     if fn is None:
         fn = getattr(kernels.load("conv3x3"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 4 + [i] * 4 + [p] if name == "packed_conv3x3"
-                       else [p] * 4 + [i] * 6 + [p])
+        fn.argtypes = ([p] * 4 + [i] * 6 + [p] if name == "conv3x3_p128"
+                       else [p] * 4 + [i] * 4 + [p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn

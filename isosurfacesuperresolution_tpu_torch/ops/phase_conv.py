@@ -9,24 +9,51 @@ both layouts into their own kernels.  Scope as in the JAX package: factor-2
 shuffle, 4 x 64 = 256 planar channels, batch 1, bias and optional ReLU
 fused, bf16 inputs and weights, float32 sums, bf16 or float32 output.
 
-`phase_conv` runs the hand-written CUDA kernel ``csrc/phase_conv.cu`` on
-CUDA tensors and `phase_conv_plain` on CPU tensors; on any other device it
-raises, and it never falls back from the card to the plain version.
+`phase_conv` runs the hand-written CUDA kernel (the ``phase_conv`` entry
+of ``csrc/conv3x3.cu``, launched by `phase_conv_kernel`) on CUDA tensors
+and `phase_conv_plain` on CPU tensors; on any other device it raises, and
+it never falls back from the card to the plain version.
+
+The kernel works in the low-res domain.  With ``(di, a') = divmod(a + d -
+1, 2)`` and ``(dj, b') = divmod(b + e - 1, 2)``, output phase (a, b)'s tap
+(d, e) reads input chunk ``a'*2+b'`` at the whole low-res shift (di, dj),
+so the 36 (phase, tap) products are 16 views of the input, each feeding
+one, two or four phases; the kernel keeps the nine taps resident and
+reads them in k3's own order.  `kernel_operands` makes its bf16 taps and
+per-channel bias once per weight pair.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from isosurfacesuperresolution_tpu_torch import kernels
+from isosurfacesuperresolution_tpu_torch.ops.pallas_conv import (
+    aligned16, check_kernel_inputs, kernel_fn, raw_stream)
 
 F_BLOCK = 64            # channels per sub-pixel block
 C4 = 4 * F_BLOCK
-_FN = None
+_OPERANDS: list = []    # [(k3, bias, versions, operands)], newest first
+
+
+def kernel_operands(k3: torch.Tensor, bias: torch.Tensor) -> tuple:
+    """k3 (3, 3, 64, 64) and bias (64,) as the kernel reads them: the bf16
+    taps, contiguous HWIO; and the float32 bias of each B-major output
+    channel, (256,).  Made once per (k3, bias) pair and reused while
+    neither tensor changes (the last four pairs are kept)."""
+    versions = None
+    if not (k3.is_inference() or bias.is_inference()):
+        versions = (k3._version, bias._version)
+        for k, b, v, ops in _OPERANDS:
+            if k is k3 and b is bias and v == versions:
+                return ops
+    ops = (k3.to(torch.bfloat16).contiguous(),
+           bias.to(torch.float32).repeat(4))
+    if versions is not None:
+        _OPERANDS.insert(0, (k3, bias, versions, ops))
+        del _OPERANDS[4:]
+    return ops
 
 
 def bmajor_from_amajor_cols() -> np.ndarray:
@@ -72,15 +99,22 @@ def phase_conv_plain(x: torch.Tensor, k3: torch.Tensor, bias: torch.Tensor,
     return y.reshape(1, H, W, C4).to(out_dtype)
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = kernels.load("phase_conv").phase_conv
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def phase_conv_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      relu: bool, out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch B5 on operands `phase_conv` prepared: bf16 ``x`` (1, H, W,
+    256) and ``w, b`` from `kernel_operands`.  ``phase_conv.launches``
+    counts launches."""
+    fn = kernel_fn("phase_conv")
+    dev = x.device
+    check_kernel_inputs(dev, out_dtype, x, w, b)
+    _, H, W, _ = x.shape
+    y = torch.empty((1, H, W, C4), dtype=out_dtype, device=dev)
+    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), H, W,
+             int(relu), int(out_dtype == torch.bfloat16), raw_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"phase_conv launch failed: CUDA error {err}")
+    phase_conv.launches += 1
+    return y
 
 
 def phase_conv(x: torch.Tensor, k3: torch.Tensor, bias: torch.Tensor,
@@ -88,33 +122,20 @@ def phase_conv(x: torch.Tensor, k3: torch.Tensor, bias: torch.Tensor,
                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (1, H, W, 256) A-major, k3 (3, 3, 64, 64) HWIO, bias (64,) ->
     (1, H, W, 256) B-major in ``out_dtype``: the CUDA kernel for CUDA
-    tensors, `phase_conv_plain` for CPU tensors.  ``phase_conv.launches``
-    counts kernel launches."""
+    tensors, `phase_conv_plain` for CPU tensors."""
     _check(x, k3, bias)
     dev = x.device
     if dev.type == "cpu":
         return phase_conv_plain(x, k3, bias, relu, out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"phase_conv runs on cuda or cpu tensors, not {dev}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"out_dtype must be bfloat16 or float32, got "
-                         f"{out_dtype}")
     for name, t in (("k3", k3), ("bias", bias)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    fn = _kernel()              # raises when the library cannot be built
-    xb = x.to(torch.bfloat16).contiguous()
-    kb = k3.to(torch.bfloat16).contiguous()
-    bf = bias.to(torch.float32).contiguous()
-    _, H, W, _ = x.shape
-    y = torch.empty((1, H, W, C4), dtype=out_dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(xb.data_ptr(), kb.data_ptr(), bf.data_ptr(), y.data_ptr(),
-             H, W, int(relu), int(out_dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"phase_conv launch failed: CUDA error {err}")
-    phase_conv.launches += 1
-    return y
+    kernel_fn("phase_conv")     # raises when the library cannot be built
+    w, b = kernel_operands(k3, bias)
+    return phase_conv_kernel(aligned16(x, torch.bfloat16), w, b, relu,
+                             out_dtype)
 
 
 phase_conv.launches = 0

@@ -1,4 +1,4 @@
-"""Time the port's 3x3 conv kernels (B6, B7) beside cuDNN on the card.
+"""Time the port's conv kernels (B6, B7, B5) beside cuDNN on the card.
 
     python -m isosurfacesuperresolution_tpu_torch.profile_convs [--reps N]
 
@@ -10,11 +10,19 @@ The port of the JAX package's `scripts/profile_pallas.py` and
   256) and w (3, 3, 256, 256) in bf16, zero bias;
 * B6 at the padded trunk shape, x (1, 270, 480, 128), w (3, 3, 128, 128);
 * a chain of 20 B7 convs (`packed_conv3x3`, ReLU, zero bias) on
-  (1, 270, 480, 64) bf16 activations packed in pixel pairs.
+  (1, 270, 480, 64) bf16 activations packed in pixel pairs;
+* the phase conv B5 (`phase_conv`, bf16 out, zero bias) at the shape of
+  `scripts/profile_phase_blocked.py`, x (1, 540, 960, 256) bf16 A-major
+  and k3 (3, 3, 64, 64) scaled by 0.05 (drawn from its own
+  ``RandomState(0)``), and the host microseconds one `phase_conv` call
+  takes to enqueue its work while the card is busy (mean of 200 calls
+  behind a long spin, no sync between them: weight preparation, checks,
+  tensor maps and launch).
 
 Each is printed beside cuDNN computing the same function: `F.conv2d` in
-bf16 on channels-last tensors (the chain: conv then ReLU, 20 times).  The
-JAX scripts' sweeps over the TPU band height have no counterpart.  Times
+bf16 on channels-last tensors (the chain: conv then ReLU, 20 times; B5:
+on the shuffled (1, 64, 1080, 1920) tensor).  The JAX scripts' sweeps
+over the TPU band height and block width have no counterpart.  Times
 are the median of ``--reps`` CUDA-event timings after a warm-up call, each
 call enqueued behind a spin of a few milliseconds so that the card runs it
 without waiting for the host (device time, the host's launch cost
@@ -26,6 +34,7 @@ from __future__ import annotations
 import argparse
 import statistics
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -35,6 +44,7 @@ from isosurfacesuperresolution_tpu_torch.ops.packed_conv import (
     pack_pairs, packed_conv3x3)
 from isosurfacesuperresolution_tpu_torch.ops.pallas_conv import (
     conv3x3_pallas_p128)
+from isosurfacesuperresolution_tpu_torch.ops.phase_conv import phase_conv
 
 _BF16 = torch.bfloat16
 
@@ -67,6 +77,18 @@ def packed_chain_inputs(device="cuda"):
                            .astype(np.float32)).to(device) * 0.1
           for _ in range(20)]
     return x, ks, torch.zeros(64, dtype=torch.float32, device=device)
+
+
+def phase_inputs(device="cuda"):
+    """`profile_phase_blocked.py`'s phase conv operands: x (1, 540, 960,
+    256) bf16 A-major, k3 (3, 3, 64, 64) float32 scaled by 0.05, zero bias
+    (64,)."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((rng.rand(1, 540, 960, 256) - 0.5)
+                         .astype(np.float32)).to(_BF16).to(device)
+    k3 = torch.from_numpy((rng.rand(3, 3, 64, 64) - 0.5)
+                          .astype(np.float32)).to(device) * 0.05
+    return x, k3, torch.zeros(64, dtype=torch.float32, device=device)
 
 
 def conv_flops(h: int, w: int, cin: int, cout: int) -> float:
@@ -102,6 +124,21 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds one call of ``fn`` takes to enqueue its work while
+    the card is busy: ``n`` calls on the host clock behind a spin of about
+    100 ms, with no sync between them."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return dt
 
 
 def main() -> None:
@@ -152,6 +189,23 @@ def main() -> None:
 
     report("cuDNN chain of 20 (270, 480) 64 -> 64", time_ms(
         cudnn_chain, args.reps), flops)
+
+
+    x, k3, b = phase_inputs()
+    h, w = x.shape[1:3]
+    flops = conv_flops(2 * h, 2 * w, 64, 64)
+    report(f"B5 phase conv ({h}, {w}) 4 x 64 -> 4 x 64", time_ms(
+        lambda: phase_conv(x, k3, b), args.reps), flops)
+    xs = x[0].reshape(h, w, 2, 2, 64).permute(4, 0, 2, 1, 3).reshape(
+        1, 64, 2 * h, 2 * w)
+    xc, kc = cudnn_input(xs.permute(0, 2, 3, 1)), cudnn_weight(k3)
+    report(f"cuDNN on the shuffled (1, 64, {2 * h}, {2 * w})", time_ms(
+        lambda: F.conv2d(xc, kc, padding=1), args.reps), flops)
+    kb = k3.to(_BF16)
+    print(f"B5 host time a call (phase_conv, mean of 200, card busy): "
+          f"k3 float32 {host_us(lambda: phase_conv(x, k3, b)):.1f} us, "
+          f"k3 bf16 as the planar tail passes it "
+          f"{host_us(lambda: phase_conv(x, kb, b)):.1f} us", flush=True)
 
 
 if __name__ == "__main__":

@@ -81,33 +81,61 @@ def test_march_ao_kernel_matches_plain(store, mm, quantize):
                                    rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(11, 21), (37, 45)])
-@pytest.mark.parametrize("out", ["float32", "bfloat16"])
-@pytest.mark.parametrize("relu", [False, True])
-def test_phase_conv_kernel_matches_plain(relu, out, shape):
-    _need_card()
-    rng = np.random.RandomState(5)
-    h, w = shape           # partial tiles on both axes
+def _phase_case(seed, h, w):
+    rng = np.random.RandomState(seed)
     x = torch.from_numpy((rng.rand(1, h, w, 256) - 0.5).astype(np.float32))
     k3 = torch.from_numpy(((rng.rand(3, 3, 64, 64) - 0.5) * 0.2
                            ).astype(np.float32))
     bias = torch.from_numpy((rng.rand(64) - 0.5).astype(np.float32))
-    xb = x.to(torch.bfloat16)
+    return x.to(torch.bfloat16), k3, bias
+
+
+def _phase_close(got, want, out):
+    """Exact bf16 products, float32 sums in another order (2e-5 on O(1)
+    sums); a bf16 output may round the other way, one step (2^-7 rel.)."""
+    got, want = got.cpu().to(torch.float32), want.to(torch.float32)
+    tol = 2e-5 + (2.0 ** -7 * want.abs() if out == "bfloat16" else 0.0)
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(11, 21), (37, 45), (1, 1), (1, 37),
+                                   (7, 130), (18, 5)])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_phase_conv_kernel_matches_plain(relu, out, shape):
+    """Partial tiles on both axes, one row, one pixel, widths that are no
+    multiple of any tile width."""
+    _need_card()
+    h, w = shape
+    xb, k3, bias = _phase_case(5, h, w)
     before = pc.phase_conv.launches
     got = pc.phase_conv3x3_amajor_blocked(
         xb.cuda(), k3.cuda(), bias.cuda(), relu=relu,
         out_dtype=getattr(torch, out))
     torch.cuda.synchronize()
     assert pc.phase_conv.launches == before + 1
-    want = pc.phase_conv_plain(xb, k3, bias, relu=relu,
-                               out_dtype=getattr(torch, out))
-    got, want = got.cpu().to(torch.float32), want.to(torch.float32)
-    # exact bf16 products, float32 sums in another order (2e-5 on O(1)
-    # sums); a bf16 output may round the other way, one step (2^-7 rel.)
-    tol = 2e-5 + (2.0 ** -7 * want.abs() if out == "bfloat16" else 0.0)
-    assert bool(((got - want).abs() <= tol).all()), \
-        float((got - want).abs().max())
+    assert got.shape == (1, h, w, 256) and got.dtype == getattr(torch, out)
+    _phase_close(got, pc.phase_conv_plain(xb, k3, bias, relu=relu,
+                                          out_dtype=getattr(torch, out)), out)
+
+
+@pytest.mark.cuda
+def test_phase_conv_takes_the_planar_callers_view():
+    """The planar engine hands B5 ``z.permute(0, 2, 3, 1).to(bf16)`` of a
+    channels-last float32 tensor: the kernel reads that view as the plain
+    version does."""
+    _need_card()
+    xb, k3, bias = _phase_case(7, 9, 20)
+    z = xb.float().permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last).cuda()
+    view = z.permute(0, 2, 3, 1).to(torch.bfloat16)
+    got = pc.phase_conv3x3_amajor_blocked(view, k3.cuda(), bias.cuda(),
+                                          relu=True)
+    torch.cuda.synchronize()
+    _phase_close(got, pc.phase_conv_plain(xb, k3, bias, relu=True),
+                 "bfloat16")
 
 
 @pytest.mark.cuda
@@ -322,7 +350,7 @@ def test_packed_conv3x3_kernel_matches_plain(h, w2, relu, out):
 
 @pytest.mark.cuda
 def test_conv_kernels_launch_on_the_current_stream():
-    """B6 and B7 launched under a side stream run on it: each reads an
+    """B6, B7 and B5 launched under a side stream run on it: each reads an
     input that the side stream fills only after a long sleep, into a
     buffer that holds NaN until then, so a launch on any other stream
     would read NaN."""
@@ -337,6 +365,10 @@ def test_conv_kernels_launch_on_the_current_stream():
     src6, src7 = x6.cuda().to(torch.bfloat16), x7.cuda().to(torch.bfloat16)
     w6c, b6c = w6.cuda().to(torch.bfloat16), b6.cuda()
     k7c, b7c = k7.cuda().to(torch.bfloat16), b7.cuda()
+    x5, k5, b5 = _phase_case(8, 9, 40)
+    buf5 = torch.full(x5.shape, float("nan"), dtype=torch.bfloat16,
+                      device="cuda")
+    src5, k5c, b5c = x5.cuda(), k5.cuda(), b5.cuda()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
@@ -346,11 +378,15 @@ def test_conv_kernels_launch_on_the_current_stream():
         torch.cuda._sleep(100_000_000)
         buf7.copy_(src7)
         y7 = PK.packed_conv3x3(buf7, k7c, b7c, relu=True)
+        torch.cuda._sleep(100_000_000)
+        buf5.copy_(src5)
+        y5 = pc.phase_conv(buf5, k5c, b5c, relu=True)
     side.synchronize()
     _conv_close(y6, PC.conv3x3_p128_plain(x6, w6, b6, relu=True),
                 "bfloat16")
     _conv_close(y7, PK.packed_conv3x3_plain(x7, k7, b7, relu=True),
                 "bfloat16")
+    _phase_close(y5, pc.phase_conv_plain(x5, k5, b5, relu=True), "bfloat16")
 
 
 @pytest.mark.cuda

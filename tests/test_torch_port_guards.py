@@ -127,7 +127,6 @@ def _no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "_LIBS", {})
     monkeypatch.setattr(sweep_march, "_FN", None)
     monkeypatch.setattr(sweep_march, "march_plain", plain)
-    monkeypatch.setattr(phase_conv, "_FN", None)
     monkeypatch.setattr(phase_conv, "phase_conv_plain", plain)
     monkeypatch.setattr(sweep_tiled, "_FNS", {})
     monkeypatch.setattr(sweep_tiled, "march_tiled_plain", plain)
@@ -388,16 +387,15 @@ def test_library_name_follows_source_and_flags(monkeypatch):
 
 def test_nvcc_flags_are_per_source(monkeypatch):
     """The march keeps every product and sum rounded on its own; the phase
-    conv and the 3x3 convs (exact bf16 products) are built without
-    --fmad=false, and each library name hashes its own flags."""
+    conv and the 3x3 convs (exact bf16 products, one source) are built
+    without --fmad=false, and each library name hashes its own flags."""
     assert "--fmad=false" in kernels.flags("sweep_march")
-    assert "--fmad=false" not in kernels.flags("phase_conv")
     assert "--fmad=false" not in kernels.flags("conv3x3")
-    assert set(kernels.SOURCES) == {"sweep_march", "phase_conv", "conv3x3"}
-    b = kernels.library_path("phase_conv")
-    monkeypatch.setitem(kernels.SOURCES, "phase_conv",
-                        ("phase_conv.cu", ["--fmad=false"]))
-    assert kernels.library_path("phase_conv") != b
+    assert set(kernels.SOURCES) == {"sweep_march", "conv3x3"}
+    b = kernels.library_path("conv3x3")
+    monkeypatch.setitem(kernels.SOURCES, "conv3x3",
+                        ("conv3x3.cu", ["--fmad=false"]))
+    assert kernels.library_path("conv3x3") != b
 
 
 _PTXAS_LOG = """\
