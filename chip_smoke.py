@@ -8,13 +8,16 @@ seconds; any failure ends the run with a non-zero exit code:
 
 1. versions and the card (`nvidia-smi` name and power limit);
 2. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
-   source, started together), and print each conv instantiation's
-   registers, spills and shared memory from the ``-Xptxas -v`` log (the
-   3x3 convs and the phase conv; any spill fails the run);
+   source, started together), and print each instantiation's registers,
+   spills and shared memory from the ``-Xptxas -v`` logs: the marches and
+   AO captures, the 3x3 convs and the phase conv (any spill fails the
+   run);
 3. each kernel vs its plain PyTorch version on the card at the shapes of
    the interactive frame, with stated bounds, and their times: the march
    (256^3 blobs, 480x270, oversample 1.25: K = 512 slices, Sn x Tn =
-   600 x 338) without and with the baked AO field, and the phase conv (B5)
+   600 x 338) without and with the baked AO field (each march with its
+   share of its bound and its m_hit mismatch share, expected 0; likewise
+   in phases 9 and 14), and the phase conv (B5)
    at (1, 540, 960, 256) with the trained post3 weights, bf16 and float32
    out: B5 and cuDNN (`F.conv2d` bf16 on the shuffled tensor) timed in
    turns behind a queued backlog, with B5's TFLOP/s, share of its bound,
@@ -243,45 +246,61 @@ def _relu(relu: str) -> str:
     return "ReLU" if relu == "1" else "no ReLU"
 
 
-# the conv library's kernel templates: name, ptxas entry pattern, the
-# instantiations expected, a label, the dynamic shared memory entry and its
-# arguments
+# each library's kernel templates: name, ptxas entry pattern, the
+# instantiations expected, a label, and for the conv library the dynamic
+# shared memory entry and its arguments
 CONV_ENTRIES = (
     ("conv3x3_kernel", r"conv3x3_kernelILi(\d+)ELb([01])ELb([01])E", 12,
      lambda g: f"conv3x3_kernel<{g[0]}, {_out(g[1])}, {_relu(g[2])}>",
-     "conv3x3_smem_bytes", lambda g: (int(g[0]),)),
+     ("conv3x3_smem_bytes", lambda g: (int(g[0]),))),
     ("phase_conv_kernel", r"phase_conv_kernelILb([01])ELb([01])E", 4,
      lambda g: f"phase_conv_kernel<{_out(g[0])}, {_relu(g[1])}>",
-     "phase_conv_smem_bytes", lambda g: ()))
+     ("phase_conv_smem_bytes", lambda g: ())))
+_STORE = {"h": "uint8", "f": "float32", "13__nv_bfloat16": "bf16"}
+_RESAMPLE = {"1": "bf16", "0": "float32"}
+_MARCH_OF = {("0", "0", "0"): "B1", ("1", "0", "0"): "B1-ao",
+             ("0", "1", "0"): "B2", ("0", "1", "1"): "B3"}
+MARCH_ENTRIES = (
+    ("march_kernel",
+     r"march_kernelI(h|f|13__nv_bfloat16)Lb([01])ELb([01])ELb([01])ELb([01])E",
+     24, lambda g: f"march_kernel {_MARCH_OF[g[2:]]} ({_STORE[g[0]]} "
+                   f"store, {_RESAMPLE[g[1]]} resample)", None),
+    ("ao_capture_kernel",
+     r"ao_capture_kernelI(h|f|13__nv_bfloat16)Lb([01])ELb([01])E", 8,
+     lambda g: f"ao_capture_kernel {'B4p' if g[2] == '1' else 'B4'} "
+               f"({_STORE[g[0]]} field, {_RESAMPLE[g[1]]} resample)", None))
 
 
-def conv_usage(kernels) -> list:
-    """Phase 2's figures for the conv library, one line per instantiation
-    of `conv3x3_kernel<NT, OUT_BF16, RELU>` and `phase_conv_kernel<OUT_BF16,
-    RELU>`: registers, spill bytes and stack from the ``-Xptxas -v``
-    log, static shared memory from it and the dynamic shared memory the
-    library launches with.  Raises on a missing log, a missing
-    instantiation or any spill."""
+def ptxas_lines(kernels, library: str, entries) -> list:
+    """Phase 2's figures for one library, a line per instantiation of each
+    kernel template in ``entries`` (the march library's `march_kernel`
+    for B1, B1-ao, B2, B3 and `ao_capture_kernel`; the conv library's
+    `conv3x3_kernel<NT, OUT_BF16, RELU>` and `phase_conv_kernel<OUT_BF16,
+    RELU>`): registers, spill bytes and stack from the ``-Xptxas -v``
+    log, static shared memory from it and, where the library reports it,
+    the dynamic shared memory it launches with.  Raises on a missing log,
+    a missing instantiation or any spill."""
     import ctypes
-    lib = kernels.load("conv3x3")
-    usage = kernels.ptxas_usage(kernels.build_log("conv3x3"))
+    lib = kernels.load(library)
+    usage = kernels.ptxas_usage(kernels.build_log(library))
     lines = []
-    for name, pattern, count, label, smem_entry, smem_args in CONV_ENTRIES:
-        smem = getattr(lib, smem_entry)
-        smem.restype = ctypes.c_int     # its int arguments pass as c_int
+    for name, pattern, count, label, dynamic in entries:
         found = [(u, re.search(pattern, u["entry"]).groups())
                  for u in usage if name in u["entry"]]
         if len(found) != count:
-            raise RuntimeError(f"the conv library's ptxas log lists "
+            raise RuntimeError(f"the {library} library's ptxas log lists "
                                f"{len(found)} {name} entries, expected "
                                f"{count}")
         for u, g in found:
+            smem = f"{u['static_smem']} B static"
+            if dynamic is not None:
+                fn = getattr(lib, dynamic[0])
+                fn.restype = ctypes.c_int  # its int arguments pass as c_int
+                smem += f" + {fn(*dynamic[1](g))} B dynamic"
             lines.append(
-                f"{label(g)}: {u['registers']} registers at launch, spill "
-                f"stores {u['spill_stores']} B, spill loads "
-                f"{u['spill_loads']} B, stack {u['stack']} B, shared memory "
-                f"{u['static_smem']} B static + {smem(*smem_args(g))} B "
-                f"dynamic")
+                f"{label(g)}: {u['registers']} registers, spill stores "
+                f"{u['spill_stores']} B, spill loads {u['spill_loads']} B, "
+                f"stack {u['stack']} B, shared memory {smem}")
             if u["spill_stores"] or u["spill_loads"]:
                 raise RuntimeError(f"spills in {lines[-1]}")
     return lines
@@ -476,9 +495,10 @@ def compare_march(got, want) -> dict:
     return {"hit_mismatch": mismatch, **diffs}
 
 
-def check_march(tag: str, got, want) -> float:
+def check_march(tag: str, got, want) -> tuple:
     """Log the comparison of the march with its plain version and raise
-    if it is out of bounds; returns the largest difference."""
+    if it is out of bounds; returns (the largest difference, the m_hit
+    mismatch share)."""
     cmp = compare_march(got, want)
     log(f"[{tag}] hits {float((got[0] >= 0).float().mean()):.4f}, "
         + ", ".join(f"{k} {v:.3g}" for k, v in cmp.items()))
@@ -497,7 +517,21 @@ def check_march(tag: str, got, want) -> float:
         hit = got[0] >= 0
         if not bool((got[5][:, ~hit] == 0).all()):
             raise RuntimeError(f"[{tag}] SH written where no crossing")
-    return max(v for k, v in cmp.items() if k != "hit_mismatch")
+    return (max(v for k, v in cmp.items() if k != "hit_mismatch"),
+            cmp["hit_mismatch"])
+
+
+def march_line(tag: str, ms: float, plain_ms: float, bound: float,
+               bound_by: str, mismatch: float, wrapper_ms=None) -> None:
+    """Log a march's time beside its bound: the share of the bound it
+    reaches (bound ms / ms) and its m_hit mismatch share (expected 0)."""
+    wrap = ("" if wrapper_ms is None else
+            f"; the wrapper, its tile table kept with the grid, "
+            f"{wrapper_ms:.3f} ms")
+    log(f"[{tag}] kernel {ms:.3f} ms (median of 7{wrap}), plain "
+        f"{plain_ms:.1f} ms (median of 3), bound {bound:.4f} ms by "
+        f"{bound_by}: {bound / ms:.4f} of its bound; m_hit mismatch share "
+        f"{mismatch:.6f} (expected 0)")
 
 
 def check_card_vs_cpu(tag: str, outs: dict, with_ao: bool) -> None:
@@ -638,7 +672,8 @@ def main() -> int:
             log(f"built {name} in {info['seconds']:.1f}s; "
                 + " | ".join(regs))
         log(f"build {time.time() - t:.1f}s")
-        for line in conv_usage(kernels):
+        for line in (ptxas_lines(kernels, "sweep_march", MARCH_ENTRIES)
+                     + ptxas_lines(kernels, "conv3x3", CONV_ENTRIES)):
             log(f"[ptxas] {line}")
 
     import torch.nn.functional as F
@@ -728,13 +763,11 @@ def main() -> int:
             torch.cuda.synchronize()
             want = sweep_march.march_plain(**args)
             torch.cuda.synchronize()
-            err = check_march(tag, got, want)
+            err, mismatch = check_march(tag, got, want)
             ms = time_cuda(lambda: march(**args), 7)
             plain_ms = time_cuda(lambda: sweep_march.march_plain(**args), 3)
             bound, bound_by = march_bound_ms(args, got)
-            log(f"[{tag}] kernel {ms:.3f} ms (median of 7), plain "
-                f"{plain_ms:.1f} ms (median of 3), bound {bound:.4f} ms "
-                f"by {bound_by}")
+            march_line(tag, ms, plain_ms, bound, bound_by, mismatch)
             rows[tag] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": bound_by,
                          "library_ms": None}
@@ -978,7 +1011,7 @@ def main() -> int:
         torch.cuda.synchronize()
         want = sweep_tiled.march_tiled_plain(**plain)
         torch.cuda.synchronize()
-        err = check_march("B2 bf16 uint8-volume", got, want)
+        err, mismatch = check_march("B2 bf16 uint8-volume", got, want)
         kargs = (args["vol_zxy"], args["meta"], args["s_grid"],
                  args["t_grid"], args["Sn"], args["Tn"], args["table"], TX,
                  TY, args["iso"], args["dtype"], args["scale"],
@@ -990,10 +1023,8 @@ def main() -> int:
         bound, bound_by = tiled_bound_ms(args, got, tables,
                                          args["vol_zxy"].shape,
                                          args["vol_zxy"].element_size())
-        log(f"[B2] kernel {ms:.3f} ms (median of 7; the wrapper, its tile "
-            f"table kept with the grid, {wrapper_ms:.3f} ms), plain "
-            f"{plain_ms:.1f} ms (median of 3), bound {bound:.4f} ms by "
-            f"{bound_by}")
+        march_line("B2", ms, plain_ms, bound, bound_by, mismatch,
+                   wrapper_ms)
         rows["tiled"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": bound_by,
                          "library_ms": None}
@@ -1185,7 +1216,7 @@ def main() -> int:
         torch.cuda.synchronize()
         want = sweep_tiled.march_packed_plain(**plain)
         torch.cuda.synchronize()
-        err = check_march("B3 bf16 uint8-atlas", got, want)
+        err, mismatch = check_march("B3 bf16 uint8-atlas", got, want)
         same = all(bool(torch.equal(a, b)) for a, b in zip(got, b2_dense))
         log(f"[B3] the packed uint8 grid against B2 on the dense grid: "
             f"{'identical' if same else 'DIFFERENT'}")
@@ -1207,10 +1238,8 @@ def main() -> int:
                              3)
         bound, bound_by = tiled_bound_ms(args, got, tables, pa.shape,
                                          atlas.element_size(), pa.slots)
-        log(f"[B3] kernel {ms:.3f} ms (median of 7; the wrapper, its tile "
-            f"table kept with the grid, {wrapper_ms:.3f} ms), plain "
-            f"{plain_ms:.1f} ms (median of 3), bound {bound:.4f} ms by "
-            f"{bound_by}")
+        march_line("B3", ms, plain_ms, bound, bound_by, mismatch,
+                   wrapper_ms)
         rows["packed"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound, "bound_by": bound_by,
                           "library_ms": None}

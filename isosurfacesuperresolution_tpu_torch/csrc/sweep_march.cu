@@ -18,25 +18,49 @@
 // float32 of the stored values, the same bf16 rounding points, no scale or
 // offset) at the crossing slice, 0 where the pixel never crosses.
 //
-// What bounds it on the H100: the volume (256^3 bf16 = 32 MB at the
-// interactive frame) is re-read for every slice plane from L2, which holds
-// it (50 MB), so the march is bound by L2/L1 load latency and the
-// K * Sn * Tn two-by-two taps (8 loads, ~30 flops per pixel and live
-// slice), not by device-memory bytes: the volume crosses HBM about once.
+// What bounds it on the H100: not bytes (the volume crosses HBM about
+// once; at 512^3 uint8 the occupied tiles are ~0.02 ms of HBM time) nor
+// tensor-core work.  It is a gather: per pixel and slice four 2 x 2 taps
+// on two planes, eight scattered loads and ~100 scalar instructions, over
+// K = 2Z slices, and at the timed views 96-99% of the 600 x 338 pixels
+// never cross, so nearly every pixel walks all K slices (~100M
+// pixel-slices a frame).  The SM's issue and load throughput bound it.
 //
-// Design (simple and right first): one thread per intermediate pixel
-// (s, t), looping over k with the hit state in registers; neighbouring
-// threads take neighbouring t, i.e. neighbouring y addresses, so a warp's
-// taps share L1 lines.  Only the two non-zero taps per axis are sampled,
-// straight from the volume, and values are rounded to bf16 exactly where
-// the TPU kernel casts to its multiply type (slice, wx, tmp, wy), with
-// float32 sums; the zero taps of the dense product add nothing.  Fm1 at the
-// four periodic neighbours is recomputed only at the crossing (0 when
-// slice k-1 was skipped or k = 0), and the thread leaves the loop once it
-// has hit, since nothing it outputs changes after that.  The AO capture
-// costs four more 2x2 samples per pixel, once, at its crossing.  Built with
-// --fmad=false so every product and sum rounds on its own.  Shared-memory
-// slice tiles and TMA are the next step.
+// Design (`march_kernel`; B1, B1-ao, B2 and B3 are its instantiations).  A
+// block of 256 threads owns an 8 x 32 rectangle of intermediate pixels
+// (s rows x t columns), one thread a pixel, and walks the slices in
+// chunks (16 slices tiled, 64 flat), one barrier a chunk
+// (__syncthreads_count: the block leaves once all its pixels crossed).
+// - Block tables.  What is the same for a whole pixel row or the whole
+//   block is listed once a slice into shared memory, a chunk ahead, by the
+//   first threads while the others march: per slice its values (fz, iso,
+//   lam, eye_t, zf or "skipped", its tile-table row), per pixel row its
+//   two x taps (offset in the plane, PACKED in the tile, -1 outside the
+//   volume; rounded tent weight; TILED its x tile and the occupancy of
+//   that tile's row of tiles as a bit mask over y tiles).  A thread reads
+//   its slice's and row's records with broadcast 16-byte loads; it finds
+//   its column's two taps itself.  Against the per-pixel form this drops
+//   the seven meta loads a slice, the row arithmetic, and for B2 and B3
+//   the tile-table loads and integer divisions of every tap: occupancy is
+//   a bit test, the y tile a multiply (`y_tile`).
+// - The resample: the two passes of `sample_slice` in its order, a tap
+//   outside the volume or in an unoccupied tile contributing 0 where
+//   `sample_slice` skips it: the +0 leaves a float32 sum that starts at +0
+//   bit for bit as it was.  So F and m_hit are the per-pixel form's, and
+//   B3 equals B2 on lossless packings.
+// - At the crossing, once a pixel: the periodic neighbours' Fm1 and
+//   B1-ao's SH capture are recomputed from global memory by
+//   `sample_slice` (neighbours may lie in other blocks).
+// Measured and dropped (PERF.md, findings): the slice footprint's voxels
+// staged in shared memory a slice ahead, formed once each, with a
+// two-pass resample from there (2.1-2.8x slower: no voxel is shared at
+// 2-18 voxels a pixel, and three barriers a slice); tables a slice ahead
+// with each pixel's loads issued a slice early (1.3-2.3x slower: the
+// barrier a slice, 64 registers).  TMA and cp.async do not fit the taps,
+// which are 1-2-voxel gathers at any alignment.  No `wgmma`: the two
+// resample matrices have two non-zeros a row, so a dense product would do
+// (footprint width / 2) times the work.  Built with --fmad=false so every
+// product and sum rounds on its own.
 //
 // B2 replaces `_tiled_kernel` (dense form) behind `march_pallas_tiled` in
 // isosurfacesuperresolution_tpu/render/sweep_pallas_tiled.py.  The slice
@@ -51,10 +75,10 @@
 // contributes only when its tile (x / TX, y / TY) is occupied, so
 //   F = sum_y rnd(sum_x [occ(x, y)] rnd(wx) rnd(sl)) rnd(wy),
 // the TPU kernel's row accumulator over occupied tiles.  On the TPU the
-// tiling gates DMA and matmul work; here a thread reads only its 2 x 2
-// taps anyway, so the same B1 design carries it: a culled tap is never
-// loaded, and an empty slice costs one read of the table.  The
-// periodic neighbours' Fm1 is recomputed under slice k-1's occupancy.
+// tiling gates DMA and matmul work; here it gates the loads: a tap of an
+// unoccupied tile is never loaded (it contributes 0), and a slice with no
+// occupied tile costs one read of the table a block.  The periodic
+// neighbours' Fm1 is recomputed under slice k-1's occupancy.
 //
 // B4 replaces `_ao_capture_kernel` (dense form) behind `ao_capture_tiled`.
 // A second pass after B2: a pixel whose march hit slice k = m_hit samples
@@ -86,9 +110,9 @@
 // against the tile table (of the atlas's tiles), the whole-slice skip and
 // the neighbours' Fm1 are B2's.  The TPU kernel resolves the slots into
 // per-frame (K, P) rows of SMEM outside the kernel; the slot table does not
-// depend on the camera, so here each tap reads it directly (one more load,
-// from a small table that stays in L1/L2).  On the same tiles a lossless
-// atlas gives B2's result bit for bit.
+// depend on the camera, so here each loaded tap reads it directly, once
+// a plane (a small table that stays in L1/L2).  On the same
+// tiles a lossless atlas gives B2's result bit for bit.
 //
 // B4p replaces `_ao_capture_kernel` in its packed form, behind
 // `ao_capture_packed`: B4 over an AO atlas (N, 4, TX, TY) in the resample
@@ -130,6 +154,7 @@ struct Tiles {
   const int* slots;
   int Zt, P, TX, TY, NTY;
   float iso;
+  float inv_ty;   // 1 / TY, rounded (see `y_tile`)
   // the table row of the slice with meta row m
   __device__ const float* row(const float* m) const {
     const int zf = min(max(static_cast<int>(m[2]), 0), Zt - 1);
@@ -218,8 +243,190 @@ struct AoStore<true> {
   using type = __nv_bfloat16;
 };
 
+// the block of `march_kernel`: kBS pixel rows (s) x kBT pixel columns (t),
+// one thread a pixel, warp w on pixel row w
+constexpr int kBS = 8;
+constexpr int kBT = 32;
+constexpr int kThreads = kBS * kBT;
+
+// slices a chunk of tap tables (one barrier a chunk): the tiled marches'
+// entries cost more to list (the tile masks), so their chunks are shorter
+// (16 and 64 measured best of 8, 16, 32, 64)
+template <bool TILED>
+__host__ __device__ constexpr int chunk() {
+  return TILED ? 16 : 64;
+}
+
+// One slice's taps, listed for the block (see the note at the top):
+// slice = (fz, iso, lam, eye_t), zf = (zf, or -1 when the slice does not
+// work; the offset of its tile-table row); per pixel row i, row[i] =
+// (offsets of its taps jx0, jx0 + 1 in the plane (PACKED: in the tile; -1
+// outside the volume), their rounded tent weights' bits) and, TILED,
+// rtile[i] = (for each of the two taps the occupancy of its x tile's row
+// of tiles as a bit mask over y tiles (NTY <= 32), its x tile).
+struct Taps {
+  float4 slice;
+  int2 zf;
+  int4 row[kBS];
+  int4 rtile[kBS];
+};
+
+// Entry i of slice k = k0 + g into tc[g]: pixel row i < kBS, or (i =
+// kBS) the slice's values.  A slice past K does not work.
+template <bool BF16, bool TILED, bool PACKED>
+__device__ void list_entry(Taps* tc, int k0, int g, int i,
+                           const float* __restrict__ meta,
+                           const float* __restrict__ s_grid, int s0, int K,
+                           int Z, int X, int Y, int Sn, const Tiles& tl) {
+  const int k = k0 + g;
+  Taps& tp = tc[g];
+  const float* m = meta + static_cast<size_t>(k) * kMeta;
+  if (i == kBS) {
+    bool work = k < K && __ldg(m + 4) > 0.5f;
+    int tab = 0;
+    if (TILED && work) {
+      const float* row = tl.row(m);
+      work = __ldg(row + tl.P) >= tl.iso;
+      tab = static_cast<int>(row - tl.tab);
+    }
+    if (work) {
+      tp.slice = make_float4(__ldg(m + 3), __ldg(m + 5), __ldg(m + 1),
+                             __ldg(m + 7));
+    }
+    tp.zf = make_int2(
+        work ? min(max(static_cast<int>(__ldg(m + 2)), 0), Z - 2) : -1, tab);
+    return;
+  }
+  if (k >= K) return;
+  const float sg = __ldg(s_grid + min(s0 + i, Sn - 1));
+  const float lam = __ldg(m + 1);
+  const float eye = __ldg(m + 6);
+  const float pos = eye + lam * (sg - eye);
+  const int j0 = static_cast<int>(floorf(pos - 0.5f));
+  int o[2], tt[2];
+  unsigned mask[2] = {0u, 0u};
+  float wt[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int j = j0 + a;
+    wt[a] = fmaxf(0.f, 1.f - fabsf(pos - (static_cast<float>(j) + 0.5f)));
+    if (BF16) wt[a] = round_bf16(wt[a]);
+    const bool in = j >= 0 && j < X;
+    tt[a] = TILED && in ? j / tl.TX : 0;
+    o[a] = in ? (PACKED ? (j - tt[a] * tl.TX) * tl.TY : j * Y) : -1;
+    if (TILED && in && tl.NTY <= 32) {
+      const float* cells = tl.row(m) + tt[a] * tl.NTY;
+      for (int y = 0; y < tl.NTY; ++y) {
+        mask[a] |= (__ldg(cells + y) >= tl.iso ? 1u : 0u) << y;
+      }
+    }
+  }
+  tp.row[i] = make_int4(o[0], o[1], __float_as_int(wt[0]),
+                        __float_as_int(wt[1]));
+  if (TILED) {
+    tp.rtile[i] = make_int4(static_cast<int>(mask[0]),
+                            static_cast<int>(mask[1]), tt[0], tt[1]);
+  }
+}
+
+// List the taps of slices k0 .. k0 + chunk<TILED> - 1 into tc: per slice
+// kBS row entries and one of the slice's values, entry e on thread e (the
+// tiled chunk's 144 entries on the first five warps: the other warps
+// march on meanwhile, which hides the entries' dependent loads better
+// than spreading them over all warps, measured).
+template <bool BF16, bool TILED, bool PACKED>
+__device__ void list_chunk(Taps* tc, int k0, const float* __restrict__ meta,
+                           const float* __restrict__ s_grid, int s0, int K,
+                           int Z, int X, int Y, int Sn, const Tiles& tl) {
+  constexpr int kPer = kBS + 1;
+  for (int e = threadIdx.y * kBT + threadIdx.x; e < chunk<TILED>() * kPer;
+       e += kThreads) {
+    list_entry<BF16, TILED, PACKED>(tc, k0, e / kPer, e % kPer, meta,
+                                    s_grid, s0, K, Z, X, Y, Sn, tl);
+  }
+}
+
+// The y tile of column j >= 0: floor((j + 0.5) * rnd(1 / TY)) is j / TY
+// exactly while (j / TY + 1) TY < 2^22: the fraction of (j + 0.5) / TY
+// lies in [0.5 / TY, 1 - 0.5 / TY] and the two roundings move it by less
+// than (j / TY + 1) 2^-23.  No integer division.
+__device__ __forceinline__ int y_tile(int j, float inv_ty) {
+  return static_cast<int>((static_cast<float>(j) + 0.5f) * inv_ty);
+}
+
+// F of this pixel on slice tp, its column at grid value tg: the taps
+// jy0, jy0 + 1 of the column are found here, the row's from the table;
+// planes zf and zf + 1 are read, a tap outside the volume or, TILED, in
+// an unoccupied tile contributes 0 (a tap `sample_slice` skips); then the
+// two passes of `sample_slice`, in its order.
+template <typename T, bool BF16, bool TILED, bool PACKED>
+__device__ float resample(const Taps& tp, int zf, float tg,
+                          const T* __restrict__ vol, size_t plane, int Y,
+                          float scale, float offset, const Tiles& tl) {
+  const float4 sl4 = tp.slice;
+  const float fz = sl4.x;
+  const float lam = sl4.z;
+  const float eye = sl4.w;
+  const float pos = eye + lam * (tg - eye);
+  const int j0 = static_cast<int>(floorf(pos - 0.5f));
+  const int4 row = tp.row[threadIdx.y];
+  int4 rt = make_int4(0, 0, 0, 0);
+  if (TILED) rt = tp.rtile[threadIdx.y];
+  const T* p0 = vol + static_cast<size_t>(zf) * plane;
+  const float wx[2] = {__int_as_float(row.z), __int_as_float(row.w)};
+  float F = 0.f;
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const int jy = j0 + b;
+    float wy = fmaxf(0.f, 1.f - fabsf(pos - (static_cast<float>(jy) + 0.5f)));
+    const bool in = jy >= 0 && jy < Y;
+    const int yt = TILED && in ? y_tile(jy, tl.inv_ty) : 0;
+    const int c = PACKED ? jy - yt * tl.TY : jy;
+    float tmp = 0.f;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int r = a ? row.y : row.x;
+      float v = 0.f;
+      bool take = in && r >= 0;
+      if (TILED && take) {
+        const int xt = a ? rt.w : rt.z;
+        const unsigned mask = static_cast<unsigned>(a ? rt.y : rt.x);
+        take = tl.NTY <= 32
+                   ? (mask >> yt & 1u) != 0
+                   : __ldg(tl.tab + tp.zf.y + xt * tl.NTY + yt) >= tl.iso;
+      }
+      if (take) {
+        const size_t i = static_cast<size_t>(r) + c;
+        float v0, v1;
+        if (PACKED) {
+          const int* srow = tl.slots + static_cast<size_t>(zf) * tl.P +
+                            (a ? rt.w : rt.z) * tl.NTY + yt;
+          v0 = load_f32(vol + static_cast<size_t>(__ldg(srow)) * plane + i);
+          v1 = load_f32(vol + static_cast<size_t>(__ldg(srow + tl.P)) *
+                                  plane + i);
+        } else {
+          v0 = load_f32(p0 + i);
+          v1 = load_f32(p0 + plane + i);
+        }
+        v = (1.f - fz) * v0 + fz * v1;
+        v = v * scale + offset;
+        if (BF16) v = round_bf16(v);
+      }
+      tmp += wx[a] * v;
+    }
+    if (BF16) {
+      tmp = round_bf16(tmp);
+      wy = round_bf16(wy);
+    }
+    F += tmp * wy;
+  }
+  return F;
+}
+
+// TILED: at most 64 registers (4 blocks an SM); left to itself ptxas gave
+// some tiled instantiations 40-48 registers and spilled (measured slower)
 template <typename T, bool BF16, bool HAS_AO, bool TILED, bool PACKED = false>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads, TILED ? 4 : 1)
 march_kernel(const T* __restrict__ vol,
              const typename AoStore<BF16>::type* __restrict__ ao,
              const float* __restrict__ meta,
@@ -229,69 +436,95 @@ march_kernel(const T* __restrict__ vol,
              float* __restrict__ m_hit, float* __restrict__ frac,
              float* __restrict__ g_s, float* __restrict__ g_t,
              float* __restrict__ g_z, float* __restrict__ sh) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = blockIdx.y * blockDim.y + threadIdx.y;
-  if (s >= Sn || t >= Tn) return;
+  // the tap tables of chunks c and c + 1 at chunk c
+  constexpr int kChunk = chunk<TILED>();
+  __shared__ Taps taps[2][kChunk];
+  const int s0 = static_cast<int>(blockIdx.y) * kBS;
+  const int t0 = static_cast<int>(blockIdx.x) * kBT;
+  const int s = s0 + static_cast<int>(threadIdx.y);
+  const int t = t0 + static_cast<int>(threadIdx.x);
+  const bool live = s < Sn && t < Tn;
   // a plane of the volume; PACKED: a tile of the atlas
   const size_t plane = PACKED ? static_cast<size_t>(tl.TX) * tl.TY
                               : static_cast<size_t>(X) * Y;
-  const float sg = s_grid[s];
-  const float tg = t_grid[t];
+  const float tg = __ldg(t_grid + min(t, Tn - 1));
   float o_m = -1.f, o_frac = 0.f, o_gs = 0.f, o_gt = 0.f, o_gz = 0.f;
   float o_sh[4] = {0.f, 0.f, 0.f, 0.f};
   float fm1 = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float* m = meta + static_cast<size_t>(k) * kMeta;
-    // skipped slice (tiled: also one with no occupied tile): no crossing
-    // test, Fm1 resets to 0
-    const float* tab_k = TILED ? tl.row(m) : nullptr;
-    if (!(m[4] > 0.5f) || (TILED && !(__ldg(tab_k + tl.P) >= tl.iso))) {
-      fm1 = 0.f;
-      continue;
-    }
-    const float F = sample_slice<T, BF16, TILED, PACKED>(
-        vol, plane, Z, X, Y, m, sg, tg, scale, offset, tl, tab_k);
-    const float iso = m[5];
-    if (F >= iso) {
-      const float d = F - fm1;
-      const float denom = fabsf(d) > 1e-12f ? d : 1e-12f;
-      o_frac = fminf(fmaxf((iso - fm1) / denom, 0.f), 1.f);
-      o_m = static_cast<float>(k);
-      o_gz = d;
-      const float* mp = m - kMeta;
-      const float* tab_p = TILED && k > 0 ? tl.row(mp) : nullptr;
-      if (k > 0 && mp[4] > 0.5f &&
-          (!TILED || __ldg(tab_p + tl.P) >= tl.iso)) {
-        // Fm1 of the periodic neighbours: F of slice k-1 recomputed (tiled:
-        // under slice k-1's occupancy)
-        const int sp = s + 1 == Sn ? 0 : s + 1;
-        const int sm = s == 0 ? Sn - 1 : s - 1;
-        const int tp = t + 1 == Tn ? 0 : t + 1;
-        const int tm = t == 0 ? Tn - 1 : t - 1;
-        const float f_sp = sample_slice<T, BF16, TILED, PACKED>(
-            vol, plane, Z, X, Y, mp, s_grid[sp], tg, scale, offset, tl, tab_p);
-        const float f_sm = sample_slice<T, BF16, TILED, PACKED>(
-            vol, plane, Z, X, Y, mp, s_grid[sm], tg, scale, offset, tl, tab_p);
-        const float f_tp = sample_slice<T, BF16, TILED, PACKED>(
-            vol, plane, Z, X, Y, mp, sg, t_grid[tp], scale, offset, tl, tab_p);
-        const float f_tm = sample_slice<T, BF16, TILED, PACKED>(
-            vol, plane, Z, X, Y, mp, sg, t_grid[tm], scale, offset, tl, tab_p);
-        o_gs = 0.5f * (f_sp - f_sm);
-        o_gt = 0.5f * (f_tp - f_tm);
+  bool done = !live;
+  list_chunk<BF16, TILED, PACKED>(taps[0], 0, meta, s_grid, s0, K, Z, X, Y,
+                                  Sn, tl);
+  __syncthreads();
+  const int chunks = (K + kChunk - 1) / kChunk;
+  for (int c = 0; c < chunks; ++c) {
+    // the next chunk's tables, listed by 72 threads while all march
+    list_chunk<BF16, TILED, PACKED>(taps[(c + 1) & 1], (c + 1) * kChunk,
+                                    meta, s_grid, s0, K, Z, X, Y, Sn, tl);
+    const Taps* cur = taps[c & 1];
+    const int n = min(kChunk, K - c * kChunk);
+    for (int g = 0; g < n && !done; ++g) {
+      const int k = c * kChunk + g;
+      const Taps& tk = cur[g];
+      const int zf = tk.zf.x;
+      if (zf < 0) {
+        // skipped slice (tiled: also one with no occupied tile): no
+        // crossing test, Fm1 resets to 0
+        fm1 = 0.f;
+        continue;
       }
-      if (HAS_AO) {
-        // SH channels at the crossing slice: channel c of slice z is plane
-        // z * 4 + c of the field
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          o_sh[c] = sample_slice<typename AoStore<BF16>::type, BF16>(
-              ao + c * plane, 4 * plane, Z, X, Y, m, sg, tg, 1.f, 0.f, tl);
+      const float F = resample<T, BF16, TILED, PACKED>(
+          tk, zf, tg, vol, plane, Y, scale, offset, tl);
+      const float iso = tk.slice.y;
+      if (F >= iso) {
+        const float sg = __ldg(s_grid + s);
+        const float* m = meta + static_cast<size_t>(k) * kMeta;
+        const float d = F - fm1;
+        const float denom = fabsf(d) > 1e-12f ? d : 1e-12f;
+        o_frac = fminf(fmaxf((iso - fm1) / denom, 0.f), 1.f);
+        o_m = static_cast<float>(k);
+        o_gz = d;
+        const float* mp = m - kMeta;
+        const float* tab_p = TILED && k > 0 ? tl.row(mp) : nullptr;
+        if (k > 0 && mp[4] > 0.5f &&
+            (!TILED || __ldg(tab_p + tl.P) >= tl.iso)) {
+          // Fm1 of the periodic neighbours: F of slice k-1 recomputed
+          // (tiled: under slice k-1's occupancy)
+          const int sp = s + 1 == Sn ? 0 : s + 1;
+          const int sm = s == 0 ? Sn - 1 : s - 1;
+          const int tp = t + 1 == Tn ? 0 : t + 1;
+          const int tm = t == 0 ? Tn - 1 : t - 1;
+          const float f_sp = sample_slice<T, BF16, TILED, PACKED>(
+              vol, plane, Z, X, Y, mp, s_grid[sp], tg, scale, offset, tl,
+              tab_p);
+          const float f_sm = sample_slice<T, BF16, TILED, PACKED>(
+              vol, plane, Z, X, Y, mp, s_grid[sm], tg, scale, offset, tl,
+              tab_p);
+          const float f_tp = sample_slice<T, BF16, TILED, PACKED>(
+              vol, plane, Z, X, Y, mp, sg, t_grid[tp], scale, offset, tl,
+              tab_p);
+          const float f_tm = sample_slice<T, BF16, TILED, PACKED>(
+              vol, plane, Z, X, Y, mp, sg, t_grid[tm], scale, offset, tl,
+              tab_p);
+          o_gs = 0.5f * (f_sp - f_sm);
+          o_gt = 0.5f * (f_tp - f_tm);
         }
+        if (HAS_AO) {
+          // SH channels at the crossing slice: channel c of slice z is
+          // plane z * 4 + c of the field
+#pragma unroll
+          for (int ch = 0; ch < 4; ++ch) {
+            o_sh[ch] = sample_slice<typename AoStore<BF16>::type, BF16>(
+                ao + ch * plane, 4 * plane, Z, X, Y, m, sg, tg, 1.f, 0.f,
+                tl);
+          }
+        }
+        done = true;
       }
-      break;
+      fm1 = F;
     }
-    fm1 = F;
+    if (__syncthreads_count(done) == kThreads) break;
   }
+  if (!live) return;
   const size_t o = static_cast<size_t>(s) * Tn + t;
   m_hit[o] = o_m;
   frac[o] = o_frac;
@@ -301,7 +534,7 @@ march_kernel(const T* __restrict__ vol,
   if (HAS_AO) {
     const size_t n = static_cast<size_t>(Sn) * Tn;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sh[c * n + o] = o_sh[c];
+    for (int ch = 0; ch < 4; ++ch) sh[ch * n + o] = o_sh[ch];
   }
 }
 
@@ -312,8 +545,8 @@ void launch(const void* vol, const void* ao, const void* meta,
             void* m_hit, void* frac, void* g_s, void* g_t, void* g_z,
             void* sh, cudaStream_t stream) {
   using A = typename AoStore<BF16>::type;
-  const dim3 block(32, 8);
-  const dim3 grid((Tn + block.x - 1) / block.x, (Sn + block.y - 1) / block.y);
+  const dim3 block(kBT, kBS);
+  const dim3 grid((Tn + kBT - 1) / kBT, (Sn + kBS - 1) / kBS);
   const T* v = static_cast<const T*>(vol);
   const A* a = static_cast<const A*>(ao);
   const float* mt = static_cast<const float*>(meta);
@@ -496,7 +729,8 @@ int march_tiled(const void* vol, int store, int mm_bf16, const void* slots,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Tiles tl = {static_cast<const float*>(tab),
-                    static_cast<const int*>(slots), Zt, P, TX, TY, NTY, iso};
+                    static_cast<const int*>(slots), Zt, P, TX, TY, NTY, iso,
+                    1.f / static_cast<float>(TY)};
   const void* ao = nullptr;
   void* sh = nullptr;
 #define TILED_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
@@ -531,7 +765,7 @@ extern "C" int sweep_march(const void* vol, int store, int mm_bf16,
       (ao != nullptr && sh == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Tiles tl = {nullptr, nullptr, 1, 0, 1, 1, 1, 0.f};
+  const Tiles tl = {nullptr, nullptr, 1, 0, 1, 1, 1, 0.f, 1.f};
 #define MARCH_ARGS vol, ao, meta, s_grid, t_grid, K, Z, X, Y, Sn, Tn, scale, \
     offset, tl, m_hit, frac, g_s, g_t, g_z, sh, st
   switch (store * 2 + (mm_bf16 ? 1 : 0)) {

@@ -13,7 +13,8 @@ whenever the model configuration supports it, as in JAX; "on" requires it
 and "off" runs the interleaved network.  The planar frame returns
 channel-first RGB (3, Hh, Wh) and carries a (1, h, w, 96) nested state;
 `InferencePipeline.frame` returns (Hh, Wh, 3) either way.  The grid is a
-dense `BrickGrid` or a packed `SparseBrickGrid`, as in JAX.
+dense `BrickGrid` or a packed `SparseBrickGrid`, as in JAX.  A frame runs
+its float32 convolutions in full float32 on the card (`fp32_convs`).
 """
 
 from __future__ import annotations
@@ -96,6 +97,18 @@ def initial_state(cfg: Config, render_cfg: RenderConfig,
     return FrameState(prev_high=prev, has_prev=False)
 
 
+def fp32_convs():
+    """The context a frame runs in: cuDNN's float32 convolutions in full
+    float32, TF32 off, whatever the global ``torch.backends.cudnn.
+    allow_tf32`` says (PyTorch's default is True); cuDNN's other flags
+    keep their values.  The CPU path, and so the tests against the JAX
+    package, computes in float32."""
+    cd = torch.backends.cudnn
+    return cd.flags(enabled=cd.enabled, benchmark=cd.benchmark,
+                    benchmark_limit=cd.benchmark_limit,
+                    deterministic=cd.deterministic, allow_tf32=False)
+
+
 class FusedFrame:
     """The fused frame: ``frame(grid, cam, cam_prev, state, rp=None) ->
     (rgb, low G-buffer (h, w, 12), new_state)``, rgb (Hh, Wh, 3), or
@@ -149,6 +162,13 @@ class FusedFrame:
         if grid.device.type != self.device.type:
             raise ValueError(f"grid is on {grid.device}, the frame "
                              f"runs on {self.device}")
+        with fp32_convs():
+            return self._frame(grid, cam, cam_prev, state, rp)
+
+    def _frame(self, grid: AnyGrid, cam: CameraParams,
+               cam_prev: CameraParams, state: FrameState,
+               rp: Optional[RenderParams]
+               ) -> Tuple[torch.Tensor, torch.Tensor, FrameState]:
         m = self.cfg.model
         u = m.upscale_factor
         # no view-adaptive oversampling: the JAX fused frame renders with a

@@ -193,3 +193,77 @@ def make_packed_ao_field(seed: int = 2):
     field[:9, :, :, 16:24] = 0.0
     field[9, :, 24:32, 8:16] = 2e-4
     return field
+
+
+# ---------------------------------------------------------------------------
+# Inputs that span many blocks of the march kernel (8 x 32 pixels a block)
+# ---------------------------------------------------------------------------
+
+BZ, BX, BY = 34, 40, 42    # rows of 42 / 84 / 168 bytes: not multiples of 16
+BSN, BTN = 27, 75          # 4 x 3 blocks, the last row and column ragged
+BTILE = 8                  # tiles of (8, 7): 5 x 6 a plane
+BEYE = (17.3, 23.6)        # the eye's (s, t), inside the volume
+
+
+def make_block_inputs(store: str, seed: int = 0):
+    """Inputs of the marches at many blocks: a field rising slowly along z
+    with a bump and a ripple in the slice plane, and noise; grids whose
+    spacing runs from 0.35 to 2.9 voxels (s rising, t falling) around an
+    eye inside the volume, overhanging it; K = 68 slices, more than one
+    chunk of the kernel's tap tables; lam = 0.05 (k - 12), from -0.6 to
+    2.75 (0 on slice 12: every pixel on one voxel; beyond 1.5 a block's
+    taps span more voxels than the block has pixels, and at the far
+    slices whole blocks see only the volume's outside); slices 0 and 2
+    skipped as behind the eye (slice 1, at -0.55, is not: its taps run
+    backwards) and slice 9 by its do-flag.  A brick pyramid (bricks of 8)
+    culls the x tiles 3 and 4 on every plane and the y tiles below 16 on
+    the lowest brick layer; background tiles (stored 0): x-tile 0 /
+    y-tile 5 on every plane, x-tile 2 / y-tile 1 on planes 4 and 5.
+    Same return as `make_tiled_inputs`."""
+    from isosurfacesuperresolution_tpu_torch.volume.grid import (
+        compute_brick_minmax)
+    rng = np.random.RandomState(seed)
+    z, x, y = np.meshgrid(np.arange(BZ), np.arange(BX), np.arange(BY),
+                          indexing="ij")
+    vol = (0.02 * z + 0.25 * np.exp(-((x - 14) ** 2 + (y - 28) ** 2) / 90.0)
+           + 0.1 * np.sin(0.7 * x) * np.cos(0.5 * y)
+           + 0.03 * rng.rand(BZ, BX, BY)).astype(np.float32)
+    vol[:, :8, 35:] = 0.0
+    vol[4:6, 16:24, 7:14] = 0.0
+    scale, offset = 1.0, 0.0
+    phys = vol
+    if store == "uint8":
+        scale = float(vol.max()) / 255.0
+        vol = np.clip(np.round(vol / scale), 0, 255).astype(np.uint8)
+        phys = vol.astype(np.float32) * np.float32(scale)
+    _, bmax = compute_brick_minmax(np.transpose(phys, (1, 2, 0)), 8)
+    bmax[3:5] = 0.0
+    bmax[:, 0:2, 0] = 0.0
+    K = 2 * BZ
+    zc = (np.arange(K) + 0.5) / 2.0
+    lam = 0.05 * (np.arange(K) - 12)
+    zf = np.clip(np.floor(zc - 0.5), 0, BZ - 2)
+    fz = np.clip(zc - 0.5 - zf, 0.0, 1.0)
+    flag = np.ones(K)
+    flag[[0, 2, 9]] = 0.0
+    iso = 0.55
+    meta = np.stack([zc, lam, zf, fz, flag, np.full(K, iso),
+                     np.full(K, BEYE[0]), np.full(K, BEYE[1])],
+                    1).astype(np.float32)
+    u = np.linspace(-13.0, 13.0, BSN)
+    v = np.linspace(-37.0, 37.0, BTN)
+    s_grid = (BEYE[0] + 0.9 * u + 0.004 * u ** 3).astype(np.float32)
+    t_grid = (BEYE[1] - 0.35 * v - 0.0003 * v ** 3).astype(np.float32)
+    return vol, meta, s_grid, t_grid, scale, offset, bmax, iso
+
+
+def make_block_ao_field(seed: int = 3):
+    """A smooth (BZ, 4, BX, BY) float32 SH-like field for the block
+    inputs."""
+    rng = np.random.RandomState(seed)
+    z, x, y = np.meshgrid(np.arange(BZ), np.arange(BX), np.arange(BY),
+                          indexing="ij")
+    chans = [0.3 + 0.01 * x + 0.02 * z, 0.1 * np.sin(0.3 * y),
+             0.05 * np.cos(0.2 * x + 0.3 * z), -0.03 + 0.004 * y]
+    return (np.stack(chans, 1)
+            + 0.01 * rng.rand(BZ, 4, BX, BY)).astype(np.float32)

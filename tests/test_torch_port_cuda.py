@@ -19,10 +19,11 @@ from isosurfacesuperresolution_tpu_torch.render import sweep_tiled as PT
 
 from isosurfacesuperresolution_tpu_torch.volume import packed as PP
 
-from _torch_port_inputs import (CASES, SN, TILE, TN, TSN, TTN, make_ao_field,
-                                make_inputs, make_packed_ao_field,
-                                make_packed_inputs, make_tiled_ao_field,
-                                make_tiled_inputs)
+from _torch_port_inputs import (BSN, BTILE, BTN, CASES, SN, TILE, TN, TSN,
+                                TTN, make_ao_field, make_block_ao_field,
+                                make_block_inputs, make_inputs,
+                                make_packed_ao_field, make_packed_inputs,
+                                make_tiled_ao_field, make_tiled_inputs)
 
 
 def _need_card():
@@ -80,6 +81,69 @@ def test_march_ao_kernel_matches_plain(store, mm, quantize):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5,
                                    rtol=0)
 
+
+
+def _close_to_plain(got, want, mm):
+    """m_hit exact, the other outputs within 1e-5; in float32 frac within
+    1e-3: the plain version's CPU matmul fuses multiply-adds where the
+    kernel rounds each product, and frac divides that difference by
+    F - Fm1 (the smoke's MAX_FRAC_DIFF); bf16 products are exact, so
+    there it is 1e-5 too."""
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    for i, (a, b) in enumerate(zip(got[1:], want[1:])):
+        tol = 1e-3 if i == 0 and mm == "float32" else 1e-5
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=tol,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ao", [False, True])
+@pytest.mark.parametrize("store,mm", CASES)
+def test_march_kernel_matches_plain_across_blocks(store, mm, with_ao):
+    """B1 and B1-ao at 4 x 3 blocks with ragged edges: footprints from one
+    voxel to wider than a block's taps, backwards, outside the volume."""
+    _need_card()
+    vol, meta, sg, tg, scale, offset, _, _ = make_block_inputs(store)
+    args = [torch.from_numpy(a) for a in (vol, meta, sg, tg)]
+    ao = torch.from_numpy(make_block_ao_field()) if with_ao else None
+    kw = dict(dtype=getattr(torch, mm), scale=scale, offset=offset)
+    got = sweep_march.march(*[a.cuda() for a in args], BSN, BTN,
+                            ao_zcxy=None if ao is None else ao.cuda(), **kw)
+    want = sweep_march.march_plain(*args, BSN, BTN, ao_zcxy=ao, **kw)
+    assert 0.2 < (want[0].numpy() >= 0).mean() < 0.9
+    _close_to_plain(got, want, mm)
+    if with_ao:
+        assert (got[5].cpu().numpy()[:, want[0].numpy() < 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store,mm", CASES)
+def test_march_tiled_and_packed_kernels_across_blocks(store, mm):
+    """B2 and B3 at 4 x 3 blocks with ragged edges, tiles of (8, 7) some
+    culled or background, against their plain versions; B3 on the
+    lossless packing equals B2 bit for bit."""
+    _need_card()
+    vol, meta, sg, tg, scale, offset, bmax, iso = make_block_inputs(store)
+    args = [torch.from_numpy(a) for a in (meta, sg, tg)]
+    bm = torch.from_numpy(bmax)
+    kw = dict(dtype=getattr(torch, mm), scale=scale, offset=offset)
+    dense = torch.from_numpy(vol)
+    got = PT.march_tiled(dense.cuda(), *[a.cuda() for a in args], BSN, BTN,
+                         bm.cuda(), 8, iso, tile=BTILE, **kw)
+    want = PT.march_tiled_plain(dense, *args, BSN, BTN, bm, 8, iso,
+                                tile=BTILE, **kw)
+    assert 0.1 < (want[0].numpy() >= 0).mean() < 0.9
+    _close_to_plain(got, want, mm)
+    pa = PP.pack_axis(dense.cuda(), tile=BTILE)
+    assert pa.tile_shape == (8, 7) and int((pa.slots == 0).sum()) > 0
+    packed = PT.march_packed(pa, *[a.cuda() for a in args], BSN, BTN,
+                             bm.cuda(), 8, iso, **kw)
+    cpu = PP.PackedAxisVolume(pa.atlas.cpu(), pa.slots.cpu(),
+                              pa.slice_max.cpu(), pa.shape)
+    _close_to_plain(packed, PT.march_packed_plain(cpu, *args, BSN, BTN, bm,
+                                                  8, iso, **kw), mm)
+    for a, b in zip(packed, got):
+        assert torch.equal(a, b)
 
 def _phase_case(seed, h, w):
     rng = np.random.RandomState(seed)
@@ -439,3 +503,46 @@ def test_int8_conv_on_card_equals_cpu(pad):
         want = PL._conv_int8(x, k, b, pad, torch.float32)
         assert float((got - want).abs().max()) <= \
             1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", ["on", "off"])
+def test_float32_frame_ignores_the_global_tf32_flag(planar, monkeypatch):
+    """A float32 frame (64 features, seeded weights) gives the same output
+    with cuDNN's TF32 allowed globally and not; a bare conv at that width
+    does not, so the frame's pin is what holds it."""
+    _need_card()
+    from isosurfacesuperresolution_tpu_torch.config import (
+        Config, ModelConfig, RenderConfig)
+    from isosurfacesuperresolution_tpu_torch.infer.pipeline import (
+        FusedFrame, initial_state)
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        EnhanceNet)
+    from isosurfacesuperresolution_tpu_torch.render.camera import (
+        CameraParams)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+    torch.manual_seed(0)
+    x = torch.randn(1, 64, 96, 128, device="cuda")
+    w = torch.randn(64, 64, 3, 3, device="cuda") * 0.05
+    bare = []
+    for flag in (True, False):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", flag)
+        bare.append(torch.nn.functional.conv2d(x, w, padding=1))
+    assert not torch.equal(bare[0], bare[1])
+    mcfg = ModelConfig(num_residual_blocks=2, num_features=64)
+    net = EnhanceNet(mcfg).cuda().eval()
+    cfg = Config(model=mcfg)
+    rcfg = RenderConfig(width=64, height=48, isovalue=0.5, ao_samples=0,
+                        renderer="sweep_pallas", sweep_dtype="float32")
+    grid = analytic.blobs_volume(32, num_blobs=5, device="cuda")
+    cam = CameraParams.create((0.3, 0.9, -1.5))
+    outs = []
+    for flag in (True, False):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", flag)
+        frame = FusedFrame(net, cfg, rcfg, planar=planar, device="cuda")
+        state = initial_state(cfg, rcfg, planar=planar, device="cuda")
+        for _ in range(2):
+            rgb, _, state = frame(grid, cam, cam, state)
+        outs.append(rgb)
+        assert torch.backends.cudnn.allow_tf32 == flag
+    assert torch.equal(outs[0], outs[1])

@@ -135,3 +135,34 @@ def test_fused_frame_refuses_planar(planar):
     with pytest.raises(ValueError):
         FusedFrame(EnhanceNet(cfg.model), cfg, RenderConfig(**RENDER),
                    planar=planar, device="cpu")
+
+
+@pytest.mark.parametrize("planar", ["on", "off"])
+def test_frame_runs_convs_with_cudnn_tf32_off(planar, monkeypatch):
+    """With cuDNN's TF32 allowed globally (PyTorch's default), every conv
+    of a frame, planar engine or interleaved EnhanceNet, runs with it
+    off; the global flag is as it was after the frame.  The convs are
+    functional: a spy on `F.conv2d` sees each, a forward pre-hook the
+    interleaved network's entry."""
+    seen, hooked = [], []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    net = EnhanceNet(ModelConfig(**MODEL)).eval()
+    net.register_forward_pre_hook(
+        lambda *_: hooked.append(torch.backends.cudnn.allow_tf32))
+    cfg, rcfg = Config(model=ModelConfig(**MODEL)), RenderConfig(**RENDER)
+    frame = FusedFrame(net, cfg, rcfg, planar=planar, device="cpu")
+    assert frame.use_planar == (planar == "on")
+    grid = analytic.blobs_volume(32, num_blobs=5, device="cpu")
+    cam = CameraParams.create(_eye(0.0))
+    state = initial_state(cfg, rcfg, planar=planar, device="cpu")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    frame(grid, cam, cam, state)
+    assert torch.backends.cudnn.allow_tf32
+    assert len(seen) >= 5 and not any(seen)
+    assert hooked == ([] if planar == "on" else [False])
