@@ -41,7 +41,10 @@ seconds; any failure ends the run with a non-zero exit code:
 9. the tiled march (B2) and the tiled AO capture (B4, both fields) vs
    their plain versions at the 512^3 frame's shapes (iso 0.36, 480x270,
    oversample 1.25, bf16 sweep: K = 1024, Sn x Tn = 600 x 338), with
-   stated bounds, and their times;
+   stated bounds, and their times; each AO capture (here and in phase
+   14) three ways: its device time behind a backlog with a cold L2 and
+   its share of the bound, its idle-queue time, and the host
+   microseconds of one call of the wrapper and of the launch entry;
 10. the 512^3 G-buffer frames `bench_volumes.py` times
    (`render_gbuffer_sweep`, 20 orbit frames each): no AO, the full-res
    bf16 field, the coarse uint8 field;
@@ -116,6 +119,10 @@ T0 = time.time()
 # clock cycles of the spin that keeps the card busy while the host enqueues
 # the calls a timing measures (about 5 ms)
 SPIN_CYCLES = 10_000_000
+# bytes written before each cold-cache timing, more than the card's 50 MB
+# L2: the timed call finds none of its inputs there, as a frame's AO
+# capture does after the march has streamed the volume
+FLUSH_BYTES = 128 << 20
 # H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -181,17 +188,25 @@ def cam_at(ang: float):
                                (0.0, 1.0, 0.0), 45.0)
 
 
-def time_samples(fn, reps: int, backlog: bool = False) -> list:
+def time_samples(fn, reps: int, backlog: bool = False,
+                 cold: bool = False) -> list:
     """Milliseconds of ``reps`` calls after one warm-up call, each between
     CUDA events.  With ``backlog`` each call is enqueued behind a spin of
     a few milliseconds, so the card runs it without waiting for the host:
-    its device time without the host's launch cost."""
+    its device time without the host's launch cost.  With ``cold`` a
+    write of FLUSH_BYTES is enqueued before that spin, outside the timed
+    window, so each call starts with a cold L2; the buffer it writes is
+    freed on return, so later peak-memory readings do not hold it."""
     import torch
+    flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             if cold else None)
     fn()
     times = []
-    for _ in range(reps):
+    for i in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if cold:
+            flush.fill_(i & 0xFF)
         if backlog:
             torch.cuda._sleep(SPIN_CYCLES)
         a.record()
@@ -480,6 +495,32 @@ def ao_tiled_bound_ms(field_shape, elem: int, meta, s_grid, t_grid, m_hit,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_taps * 4 * 10 / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def capture_row(tag: str, kernel_fn, wrapper_fn, plain_fn, bound: float,
+                bound_by: str, err: float, m_hit) -> dict:
+    """Time an AO capture three ways and log it: its device time (the
+    launch entry behind a backlog with a cold L2, median of 21), its
+    idle-queue time and its wrapper's (median of 7), and the host
+    microseconds of one call of each; beside them the plain version's
+    time, the bound and the share of it the device time takes.  Returns
+    the kernel line's row (ms: the device time)."""
+    dev_ms = statistics.median(time_samples(kernel_fn, 21, backlog=True,
+                                            cold=True))
+    idle_ms = time_cuda(kernel_fn, 7)
+    wrapper_ms = time_cuda(wrapper_fn, 7)
+    plain_ms = time_cuda(plain_fn, 3)
+    entry_us = host_us(kernel_fn)
+    wrap_us = host_us(wrapper_fn)
+    hits = float((m_hit >= 0).float().mean())
+    log(f"[{tag}] device {dev_ms:.4f} ms (behind a backlog, cold L2, median "
+        f"of 21): {bound / dev_ms:.4f} of its bound {bound:.4f} ms by "
+        f"{bound_by}; idle queue {idle_ms:.4f} ms, the wrapper "
+        f"{wrapper_ms:.4f} ms (median of 7); host {entry_us:.1f} us a call "
+        f"of the launch entry, {wrap_us:.1f} us of the wrapper; plain "
+        f"{plain_ms:.1f} ms (median of 3); hits {hits:.4f}")
+    return {"max_abs_err": err, "ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
 
 
 def compare_march(got, want) -> dict:
@@ -1064,24 +1105,16 @@ def main() -> int:
             kargs = (field, args["meta"], args["s_grid"], args["t_grid"],
                      m_hit, table, TX, TY, args["iso"], args["dtype"],
                      g.ao_scale, g.ao_offset, g.ao_downsample)
-            ms = time_cuda(lambda: sweep_tiled.ao_capture_tiled_kernel(
-                *kargs), 7)
-            wrapper_ms = time_cuda(lambda: sweep_tiled.ao_capture_tiled(
-                **ao_args, table=table), 7)
-            plain_ms = time_cuda(
-                lambda: sweep_tiled.ao_capture_tiled_plain(**ao_args), 3)
             bound, bound_by = ao_tiled_bound_ms(
                 field.shape, field.element_size(), args["meta"],
                 args["s_grid"], args["t_grid"], m_hit, g.ao_downsample,
                 tables, table.numel() * 4)
-            log(f"[B4 {tag}] kernel {ms:.3f} ms (median of 7; the wrapper, "
-                f"its tile table kept with the grid, {wrapper_ms:.3f} ms), "
-                f"plain {plain_ms:.1f} ms (median of 3), bound {bound:.4f} "
-                f"ms by {bound_by}")
-            rows[f"ao_tiled {tag}"] = {
-                "max_abs_err": float(d.max()), "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": bound_by, "library_ms": None}
+            rows[f"ao_tiled {tag}"] = capture_row(
+                f"B4 {tag}",
+                lambda: sweep_tiled.ao_capture_tiled_kernel(*kargs),
+                lambda: sweep_tiled.ao_capture_tiled(**ao_args, table=table),
+                lambda: sweep_tiled.ao_capture_tiled_plain(**ao_args), bound,
+                bound_by, float(d.max()), m_hit)
         b2_dense = got
         del args, want, sh, sh_want, d
 
@@ -1267,12 +1300,6 @@ def main() -> int:
         ao_atlas = sweep_tiled.kernel_atlas(pao, args["dtype"])
         kargs = (ao_atlas, pao.slots, args["meta"], args["s_grid"],
                  args["t_grid"], m_hit, args["dtype"])
-        ms = time_cuda(lambda: sweep_tiled.ao_capture_packed_kernel(*kargs),
-                       7)
-        wrapper_ms = time_cuda(lambda: sweep_tiled.ao_capture_packed(
-            **ao_args), 7)
-        plain_ms = time_cuda(
-            lambda: sweep_tiled.ao_capture_packed_plain(**ao_args), 3)
         TX, TY, occ, counts, _, _ = sweep_tiled.ao_packed_tables(
             pao, args["meta"], m_hit)
         # the slot entries B4p reads: planes zf and zf + 1 of kept pairs
@@ -1286,12 +1313,12 @@ def main() -> int:
             args["t_grid"], m_hit, 1, (TX, TY, occ, counts, args["meta"]),
             entries * 4)
         log(f"[B4p] kept pairs {int(occ.sum())} on {int((counts > 0).sum())} "
-            f"slices; kernel {ms:.3f} ms (median of 7; the wrapper, the atlas "
-            f"cast once and kept, {wrapper_ms:.3f} ms), plain {plain_ms:.1f} "
-            f"ms (median of 3), bound {bound:.4f} ms by {bound_by}")
-        rows["ao_packed"] = {"max_abs_err": float(d.max()), "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound,
-                             "bound_by": bound_by, "library_ms": None}
+            f"slices (the wrapper's atlas cast once and kept)")
+        rows["ao_packed"] = capture_row(
+            "B4p", lambda: sweep_tiled.ao_capture_packed_kernel(*kargs),
+            lambda: sweep_tiled.ao_capture_packed(**ao_args),
+            lambda: sweep_tiled.ao_capture_packed_plain(**ao_args), bound,
+            bound_by, float(d.max()), m_hit)
         del args, got, want, b2_dense, sh, sh_want, d
 
     with phase("15 packed 512^3 G-buffer frames, 20 each"):

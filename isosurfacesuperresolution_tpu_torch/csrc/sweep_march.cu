@@ -94,11 +94,20 @@
 // inv_f = 1/fd, between the coarse slabs
 // zf2 = clip(floor(zc / fd - 0.5), 0, Z2 - 2) and zf2 + 1 (the TPU
 // wrapper's rewrite of the meta z columns).  On the TPU the kernel loops
-// over slices and DMAs (2, 4, TX, TY) windows; here one thread per pixel
-// reads its own row k and at most 2 x 2 x 2 x 4 field values, with no
-// loop over slices.  The field is read through its strides (a permuted
-// view is not copied).
-// Bound: the field values sampled at the hits; the reads are scattered.
+// over slices and DMAs (2, 4, TX, TY) windows; here a hit reads its own
+// row k and at most 2 x 2 x 2 x 4 field values, with no loop over slices.
+// The field is read through its strides (a permuted view is not copied).
+// What bounds it on the H100: not bytes (m_hit read and sh written are
+// 4 MB at 600 x 338, ~1.2 us) but latency: 0.5-4% of the pixels hit, and
+// a hit's loads form a chain (m_hit -> meta -> pair gates -> field).  A
+// thread a pixel would run that chain, up to ten round trips with the
+// pairs one after another, while the other 31 lanes of its warp waited.
+// Design (`ao_capture_kernel`, see its note): pass A, a thread a pixel,
+// resolves each pixel's taps and gates in two round trips after m_hit and
+// stores the zeros of pixels with no kept pair; the block's hits are
+// listed in shared memory and pass B spreads each hit's 32 field values
+// over eight lanes of a warp (four channels a lane), loaded together,
+// summed with shuffles in the per-pixel order (bit for bit that form).
 //
 // B3 replaces `_tiled_kernel` in its packed form, behind
 // `march_pallas_packed` in sweep_pallas_tiled.py: B2's function over a
@@ -123,6 +132,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -574,11 +584,80 @@ void launch(const void* vol, const void* ao, const void* meta,
   }
 }
 
-// B4 and B4p: see the note at the top.  One thread per intermediate
-// pixel.  PACKED: field is the atlas, (sz, sc, sx, sy) its strides per slot,
-// channel, x and y, and slots the (Z2, NTX, NTY) slot table; tab is unused.
+// B4 and B4p (see the note at the top): a block of kCapThreads threads
+// owns as many pixels (o = s * Tn + t), in runs of 32, one a warp, the
+// runs of a block spread over the image.  Pass A, a thread a pixel:
+// m_hit; the hit slice's meta row and the pixel's grid values, loaded
+// together; the taps, rounded weights and tiles; the gates of the tap
+// pairs, loaded together (B4: the dilated table; B4p: the slot entries of
+// both planes).  A pixel with no kept pair stores its four zeros
+// (coalesced); the others leave their record in shared memory and are
+// listed in pixel order (__ballot_sync + __popc, a count a warp).  Pass
+// B: each warp takes kCapHits listed hits at a time, kCapLanes lanes a
+// hit; lane r of a hit's lanes holds plane p, x tap a and y tap b and
+// loads the tap's four channels, all loads issued together, and the
+// values are summed with warp shuffles in the parent's order.
+// PACKED: field is the atlas, (sz, sc, sx, sy) its strides per slot,
+// channel, x and y, and slots the (Z2, NTX, NTY) slot table; tab is
+// unused.  This layout measured fastest of those `tools/ablate_capture.py`
+// tries (PERF.md): blocks of 128 and 256 threads, runs of 256 pixels a
+// block, 32 lanes a hit (a lane a channel) with 1, 4 or 8 hits a warp, 8
+// lanes a hit with 8 hits a warp, the small tables prefetched.
+constexpr int kCapThreads = 512;
+constexpr int kCapWarps = kCapThreads / 32;
+constexpr int kCapLanes = 8;
+constexpr int kCapHits = 32 / kCapLanes;
+
+// A listed hit, as pass A leaves it for pass B.  flags: bit 2a + b, the
+// pair of taps (a, b) is kept (inside the field, its gate passed); bit 4,
+// both x taps lie in one tile (one pair along x); bit 5, likewise y.
+// PACKED: ox, oy the origins of the taps' tiles, slot[2 (2a + b) + p] the
+// atlas slot of pair (a, b) on plane zf + p.
+template <bool PACKED>
+struct CapHit {
+  int o, zf, jx0, jy0, flags;
+  float fz, wx[2], wy[2];
+  int ox[PACKED ? 2 : 1], oy[PACKED ? 2 : 1], slot[PACKED ? 8 : 1];
+};
+
+__device__ __forceinline__ float pick(float4 v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The four channels of a tap at p (channel stride sc) as float32: one
+// vector load where they are contiguous and aligned, else four.
+template <typename S>
+__device__ __forceinline__ void load_channels(const S* p, long long sc,
+                                              float v[4]) {
+  if (sc == 1 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(S)) == 0) {
+    if constexpr (sizeof(S) == 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = x.x;
+      v[1] = x.y;
+      v[2] = x.z;
+      v[3] = x.w;
+    } else if constexpr (sizeof(S) == 2) {
+      const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = __uint_as_float(x.x << 16);
+      v[1] = __uint_as_float(x.x & 0xffff0000u);
+      v[2] = __uint_as_float(x.y << 16);
+      v[3] = __uint_as_float(x.y & 0xffff0000u);
+    } else {
+      const unsigned int x =
+          __ldg(reinterpret_cast<const unsigned int*>(p));
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[c] = static_cast<float>((x >> (8 * c)) & 0xffu);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = load_f32(p + c * sc);
+}
+
 template <typename S, bool BF16, bool PACKED = false>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kCapThreads)
 ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
                   long long sx, long long sy, const float* __restrict__ meta,
                   const float* __restrict__ s_grid,
@@ -589,111 +668,197 @@ ao_capture_kernel(const S* __restrict__ field, long long sz, long long sc,
                   int X2, int Y2, int Sn, int Tn, int P, int TX, int TY,
                   int NTY, int fd, float iso, float inv_f, float4 scale,
                   float4 offset, float* __restrict__ sh) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int s = blockIdx.y * blockDim.y + threadIdx.y;
-  if (s >= Sn || t >= Tn) return;
-  const size_t o = static_cast<size_t>(s) * Tn + t;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const float mh = m_hit[o];
-  // the march stores the crossing slice as float(k)
-  const int k = mh >= 0.f ? min(static_cast<int>(mh), K - 1) : 0;
-  const float* m = meta + static_cast<size_t>(k) * kMeta;
-  if (mh >= 0.f && m[4] > 0.5f) {
-    // the slice's row of the dilated table (fine voxels)
-    const float* tab_k =
-        PACKED ? nullptr
-               : tab + static_cast<size_t>(min(max(static_cast<int>(m[2]), 0),
-                                               Zt - 1)) * (P + 1);
-    const float lam = m[1];
-    const float eye_s = m[6];
-    const float eye_t = m[7];
-    float fz = m[3];
-    int zf = static_cast<int>(m[2]);
-    if (fd > 1) {
-      // the fine cell-centered z maps to coarse z / fd (coarse voxel j's
-      // center sits at fine (j + 0.5) * fd)
-      const float zc2 = m[0] / static_cast<float>(fd);
-      const float zf2 = fminf(fmaxf(floorf(zc2 - 0.5f), 0.f),
-                              static_cast<float>(Z2 - 2));
-      fz = fminf(fmaxf(zc2 - 0.5f - zf2, 0.f), 1.f);
-      zf = static_cast<int>(zf2);
-    }
-    zf = min(max(zf, 0), Z2 - 2);
-    const float s_pos = (eye_s + lam * (s_grid[s] - eye_s)) * inv_f;
-    const float t_pos = (eye_t + lam * (t_grid[t] - eye_t)) * inv_f;
-    const int jx0 = static_cast<int>(floorf(s_pos - 0.5f));
-    const int jy0 = static_cast<int>(floorf(t_pos - 0.5f));
-    // the two taps per axis: rounded weight and tile (-1: outside)
-    int xt[2], yt[2];
-    float wx[2], wy[2];
+  __shared__ CapHit<PACKED> rec[kCapThreads];     // by thread
+  __shared__ int list[kCapThreads];                // the hits' threads
+  __shared__ int warp_hits[kCapWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t n = static_cast<size_t>(Sn) * Tn;
+  // warp w of block b takes the 32 pixels of run w * gridDim.x + b: the
+  // hits of a dense stretch of the image go to neighbouring blocks
+  const size_t o =
+      (static_cast<size_t>(warp) * gridDim.x + blockIdx.x) * 32 + lane;
+
+  // pass A
+  bool keep = false;
+  const float mh = o < n ? m_hit[o] : -1.f;
+  if (mh >= 0.f) {
+    // the march stores the crossing slice as float(k)
+    const int k = min(static_cast<int>(mh), K - 1);
+    const float* m = meta + static_cast<size_t>(k) * kMeta;
+    const int s = static_cast<int>(o / Tn);
+    const int t = static_cast<int>(o - static_cast<size_t>(s) * Tn);
+    float mk[kMeta];
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int jx = jx0 + a;
-      const int jy = jy0 + a;
-      xt[a] = (jx >= 0 && jx < X2) ? jx / TX : -1;
-      yt[a] = (jy >= 0 && jy < Y2) ? jy / TY : -1;
-      wx[a] = fmaxf(0.f, 1.f - fabsf(s_pos - (static_cast<float>(jx) + 0.5f)));
-      wy[a] = fmaxf(0.f, 1.f - fabsf(t_pos - (static_cast<float>(jy) + 0.5f)));
-      if (BF16) {
-        wx[a] = round_bf16(wx[a]);
-        wy[a] = round_bf16(wy[a]);
+    for (int i = 0; i < kMeta; ++i) mk[i] = __ldg(m + i);
+    const float sg = __ldg(s_grid + s);
+    const float tg = __ldg(t_grid + t);
+    if (mk[4] > 0.5f) {
+      CapHit<PACKED> h = {};
+      const float lam = mk[1];
+      const float eye_s = mk[6];
+      const float eye_t = mk[7];
+      float fz = mk[3];
+      int zf = static_cast<int>(mk[2]);
+      // the slice's row of the dilated table (fine voxels)
+      const float* tab_k =
+          PACKED ? nullptr
+                 : tab + static_cast<size_t>(min(max(zf, 0), Zt - 1)) *
+                             (P + 1);
+      if (fd > 1) {
+        // the fine cell-centered z maps to coarse z / fd (coarse voxel j's
+        // center sits at fine (j + 0.5) * fd)
+        const float zc2 = mk[0] / static_cast<float>(fd);
+        const float zf2 = fminf(fmaxf(floorf(zc2 - 0.5f), 0.f),
+                                static_cast<float>(Z2 - 2));
+        fz = fminf(fmaxf(zc2 - 0.5f - zf2, 0.f), 1.f);
+        zf = static_cast<int>(zf2);
       }
-    }
-    const float sc4[4] = {scale.x, scale.y, scale.z, scale.w};
-    const float of4[4] = {offset.x, offset.y, offset.z, offset.w};
-    // PACKED: the slot rows of planes zf and zf + 1
-    const int* s0 = PACKED ? slots + static_cast<size_t>(zf) * P : nullptr;
-    // pairs in increasing id xt * NTY + yt: distinct x tiles, then y tiles
-    for (int ia = 0; ia < 2; ++ia) {
-      const int pxt = xt[ia];
-      if (pxt < 0 || (ia == 1 && pxt == xt[0])) continue;
-      for (int ib = 0; ib < 2; ++ib) {
-        const int pyt = yt[ib];
-        if (pyt < 0 || (ib == 1 && pyt == yt[0])) continue;
-        // the pair's planes zf and zf + 1, and the field index of their
-        // first element
-        const S* p0 = field + static_cast<long long>(zf) * sz;
-        const S* p1 = p0 + sz;
-        int ox = 0, oy = 0;
-        if (PACKED) {
-          // slot 0 is the all-zero tile
-          const int c0 = __ldg(s0 + pxt * NTY + pyt);
-          const int c1 = __ldg(s0 + P + pxt * NTY + pyt);
-          if (c0 == 0 && c1 == 0) continue;
-          p0 = field + c0 * sz;
-          p1 = field + c1 * sz;
-          ox = pxt * TX;
-          oy = pyt * TY;
-        } else if (!(__ldg(tab_k + pxt * NTY + pyt) >= iso)) {
-          continue;
-        }
+      zf = min(max(zf, 0), Z2 - 2);
+      const float s_pos = (eye_s + lam * (sg - eye_s)) * inv_f;
+      const float t_pos = (eye_t + lam * (tg - eye_t)) * inv_f;
+      const int jx0 = static_cast<int>(floorf(s_pos - 0.5f));
+      const int jy0 = static_cast<int>(floorf(t_pos - 0.5f));
+      // the two taps per axis: rounded weight and tile (-1: outside)
+      int xt[2], yt[2];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float term = 0.f;
-          for (int b = 0; b < 2; ++b) {
-            if (yt[b] != pyt) continue;
-            float tmp = 0.f;
-            for (int a = 0; a < 2; ++a) {
-              if (xt[a] != pxt) continue;
-              const long long i =
-                  (jx0 + a - ox) * sx + (jy0 + b - oy) * sy + c * sc;
-              float v = (1.f - fz) * load_f32(p0 + i) +
-                        fz * load_f32(p1 + i);
-              v = v * sc4[c] + of4[c];
-              if (BF16) v = round_bf16(v);
-              tmp += wx[a] * v;
-            }
-            if (BF16) tmp = round_bf16(tmp);
-            term += tmp * wy[b];
-          }
-          acc[c] += term;
+      for (int a = 0; a < 2; ++a) {
+        const int jx = jx0 + a;
+        const int jy = jy0 + a;
+        xt[a] = (jx >= 0 && jx < X2) ? jx / TX : -1;
+        yt[a] = (jy >= 0 && jy < Y2) ? jy / TY : -1;
+        float wx = fmaxf(0.f, 1.f - fabsf(s_pos - (static_cast<float>(jx) +
+                                                   0.5f)));
+        float wy = fmaxf(0.f, 1.f - fabsf(t_pos - (static_cast<float>(jy) +
+                                                   0.5f)));
+        if (BF16) {
+          wx = round_bf16(wx);
+          wy = round_bf16(wy);
         }
+        h.wx[a] = wx;
+        h.wy[a] = wy;
+      }
+      // the gates of the four tap pairs, loaded together
+      const int* s0 = PACKED ? slots + static_cast<size_t>(zf) * P : nullptr;
+      int flags = (xt[0] >= 0 && xt[0] == xt[1] ? 16 : 0) |
+                  (yt[0] >= 0 && yt[0] == yt[1] ? 32 : 0);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          if (xt[a] < 0 || yt[b] < 0) continue;
+          const int c = xt[a] * NTY + yt[b];
+          bool kept;
+          if constexpr (PACKED) {
+            // slot 0 is the all-zero tile
+            const int c0 = __ldg(s0 + c);
+            const int c1 = __ldg(s0 + P + c);
+            h.slot[2 * (2 * a + b)] = c0;
+            h.slot[2 * (2 * a + b) + 1] = c1;
+            kept = c0 != 0 || c1 != 0;
+          } else {
+            kept = __ldg(tab_k + c) >= iso;
+          }
+          flags |= kept ? 1 << (2 * a + b) : 0;
+        }
+      }
+      if constexpr (PACKED) {
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          h.ox[a] = xt[a] * TX;
+          h.oy[a] = yt[a] * TY;
+        }
+      }
+      h.o = static_cast<int>(o);
+      h.zf = zf;
+      h.jx0 = jx0;
+      h.jy0 = jy0;
+      h.fz = fz;
+      h.flags = flags;
+      keep = (flags & 15) != 0;
+      if (keep) rec[threadIdx.x] = h;
+    }
+  }
+  if (o < n && !keep) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sh[c * n + o] = 0.f;
+  }
+  const unsigned int ball = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) warp_hits[warp] = __popc(ball);
+  __syncthreads();
+  int first = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kCapWarps; ++w) {
+    const int c = warp_hits[w];
+    first += w < warp ? c : 0;
+    total += c;
+  }
+  if (keep) list[first + __popc(ball & ((1u << lane) - 1u))] = threadIdx.x;
+  __syncthreads();
+
+  // pass B: lane r of a hit's kCapLanes lanes holds plane p, x tap a,
+  // y tap b; the shuffle offsets of b, a and p
+  constexpr int OB = 1, OA = 2, OP = 4;
+  const int grp = lane / kCapLanes;
+  const int r = lane % kCapLanes;
+  const int b = r & 1;
+  const int a = (r >> 1) & 1;
+  const int p = (r >> 2) & 1;
+  for (int i0 = warp * kCapHits; i0 < total; i0 += kCapWarps * kCapHits) {
+    const int i = i0 + grp;
+    const CapHit<PACKED>& e = rec[list[min(i, total - 1)]];
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (i < total && ((e.flags >> (2 * a + b)) & 1)) {
+      const int jx = e.jx0 + a;
+      const int jy = e.jy0 + b;
+      const S* q;
+      if constexpr (PACKED) {
+        q = field + e.slot[2 * (2 * a + b) + p] * sz + (jx - e.ox[a]) * sx +
+            (jy - e.oy[b]) * sy;
+      } else {
+        q = field + static_cast<long long>(e.zf + p) * sz + jx * sx +
+            jy * sy;
+      }
+      load_channels(q, sc, v);
+    }
+    const bool same_x = e.flags & 16;
+    const bool same_y = e.flags & 32;
+    const float wxa = a ? e.wx[1] : e.wx[0];
+    const float wyb = b ? e.wy[1] : e.wy[0];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      // the z-lerp of the two planes, the dequant, the cast
+      const float vo = __shfl_xor_sync(0xffffffffu, v[c], OP);
+      const float v0 = p ? vo : v[c];
+      const float v1 = p ? v[c] : vo;
+      float x = (1.f - e.fz) * v0 + e.fz * v1;
+      x = x * pick(scale, c) + pick(offset, c);
+      if (BF16) x = round_bf16(x);
+      // the pair's x taps, summed and rounded
+      const float px = wxa * x;
+      const float pxo = __shfl_xor_sync(0xffffffffu, px, OA);
+      float tmp = 0.f + (same_x && a ? pxo : px);
+      if (same_x) tmp += a ? px : pxo;
+      if (BF16) tmp = round_bf16(tmp);
+      // its y taps
+      const float py = tmp * wyb;
+      const float pyo = __shfl_xor_sync(0xffffffffu, py, OB);
+      float term = 0.f + (same_y && b ? pyo : py);
+      if (same_y) term += b ? py : pyo;
+      // the kept pairs' terms in increasing pair id, at lane (0, 0, 0)
+      const float t01 = __shfl_down_sync(0xffffffffu, term, OB);
+      const float t10 = __shfl_down_sync(0xffffffffu, term, OA);
+      const float t11 = __shfl_down_sync(0xffffffffu, term, OA + OB);
+      if (r == 0 && i < total) {
+        float acc = 0.f;
+        if (e.flags & 1) acc += term;
+        if ((e.flags & 2) && !same_y) acc += t01;
+        if ((e.flags & 4) && !same_x) acc += t10;
+        if ((e.flags & 8) && !same_x && !same_y) acc += t11;
+        sh[c * n + e.o] = acc;
       }
     }
   }
-  const size_t n = static_cast<size_t>(Sn) * Tn;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) sh[c * n + o] = acc[c];
 }
 
 template <typename S, bool BF16, bool PACKED = false>
@@ -704,9 +869,10 @@ void launch_ao(const void* field, long long sz, long long sc, long long sx,
                int Sn, int Tn, int P, int TX, int TY, int NTY, int fd,
                float iso, float inv_f, float4 scale, float4 offset, void* sh,
                cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((Tn + block.x - 1) / block.x, (Sn + block.y - 1) / block.y);
-  ao_capture_kernel<S, BF16, PACKED><<<grid, block, 0, stream>>>(
+  const size_t n = static_cast<size_t>(Sn) * Tn;
+  const unsigned int grid =
+      static_cast<unsigned int>((n + kCapThreads - 1) / kCapThreads);
+  ao_capture_kernel<S, BF16, PACKED><<<grid, kCapThreads, 0, stream>>>(
       static_cast<const S*>(field), sz, sc, sx, sy,
       static_cast<const float*>(meta), static_cast<const float*>(s_grid),
       static_cast<const float*>(t_grid), static_cast<const float*>(m_hit),
@@ -837,7 +1003,8 @@ extern "C" int ao_capture_tiled(const void* field, int store, int mm_bf16,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K < 1 || Z2 < 2 || X2 < 1 || Y2 < 1 || Sn < 1 || Tn < 1 || TX < 1 ||
       TY < 1 || X2 % TX || Y2 % TY || NTY != Y2 / TY ||
-      P != (X2 / TX) * NTY || tab == nullptr || Zt < 1 || fd < 1) {
+      P != (X2 / TX) * NTY || tab == nullptr || Zt < 1 || fd < 1 ||
+      static_cast<long long>(Sn) * Tn > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float4 scale = make_float4(s0, s1, s2, s3);
@@ -871,7 +1038,8 @@ extern "C" int ao_capture_packed(const void* atlas, int mm_bf16,
                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K < 1 || Z < 2 || X < 1 || Y < 1 || Sn < 1 || Tn < 1 || TX < 1 ||
-      TY < 1 || X % TX || Y % TY || slots == nullptr) {
+      TY < 1 || X % TX || Y % TY || slots == nullptr ||
+      static_cast<long long>(Sn) * Tn > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int NTY = Y / TY;

@@ -136,6 +136,16 @@ def ptxas_usage(log: str) -> list:
     return out
 
 
+def source_constant(name: str, const: str) -> int:
+    """The value of ``constexpr int <const>`` in kernel ``name``'s source:
+    a launch layout that tools and tests follow, read where it is set."""
+    text = (CSRC / f"{name}.cu").read_text()
+    m = re.search(rf"constexpr int {const} = (\d+);", text)
+    if m is None:
+        raise KeyError(f"{name}.cu sets no constexpr int {const}")
+    return int(m.group(1))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)

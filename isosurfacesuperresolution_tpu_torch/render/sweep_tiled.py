@@ -45,6 +45,8 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple, Union
 
+import numpy as np
+
 import torch
 
 from isosurfacesuperresolution_tpu_torch import kernels
@@ -199,6 +201,13 @@ def march_tiled_plain(vol_zxy: torch.Tensor, meta: torch.Tensor,
                           scale, offset, occ=occ, tile=(TX, TY))
 
 
+def inv_f32(fd: int) -> float:
+    """1 / fd rounded to float32, as the captures scale the hit position
+    into a field downsampled ``fd`` times (no tensor: a launch makes it on
+    the host every call)."""
+    return float(np.float32(1) / np.float32(fd))
+
+
 def per_channel(v: ChannelFloats) -> Tuple[float, ...]:
     """An AO scale or offset (a float or a 4-tuple) as four float32
     values, on the host."""
@@ -276,7 +285,7 @@ def _capture_loop(field: torch.Tensor, meta: torch.Tensor,
     rows = meta.cpu().tolist()
     cnt = counts.cpu().tolist()
     occ_h = occ.flatten(1).cpu()
-    inv_f = torch.tensor(1.0 / fd, dtype=_F32).item()
+    inv_f = inv_f32(fd)
     jx = torch.arange(X2, dtype=_F32, device=dev) + 0.5
     jy = torch.arange(Y2, dtype=_F32, device=dev) + 0.5
     sh = torch.zeros((4, Sn, Tn), dtype=_F32, device=dev)
@@ -488,7 +497,7 @@ def ao_capture_tiled_kernel(field: torch.Tensor, meta: torch.Tensor,
              s_grid.data_ptr(), t_grid.data_ptr(), m_hit.data_ptr(),
              table.data_ptr(), table.shape[0], K, Z2, X2, Y2, Sn, Tn,
              table.shape[1] - 1, TX, TY, Y2 // TY, fd, _iso32(iso),
-             torch.tensor(1.0 / fd, dtype=_F32).item(),
+             inv_f32(fd),
              *per_channel(ao_scale), *per_channel(ao_offset),
              sh.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -267,3 +267,39 @@ def make_block_ao_field(seed: int = 3):
              0.05 * np.cos(0.2 * x + 0.3 * z), -0.03 + 0.004 * y]
     return (np.stack(chans, 1)
             + 0.01 * rng.rand(BZ, 4, BX, BY)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# AO capture images: hit patterns over several blocks of the capture kernel
+# (kCapThreads pixels a block, in csrc/sweep_march.cu)
+# ---------------------------------------------------------------------------
+
+HSN, HTN = 40, 30          # 1200 pixels: three blocks of 512, the last ragged
+
+
+def make_hit_grids():
+    """(s_grid, t_grid) float32 over the tiled inputs' 32 x 32 slice
+    plane, overhanging it (the slices' lam of 0.8-0.96 draws them in) so
+    that taps fall outside the volume; t runs backwards."""
+    s = np.linspace(-5.3, 37.6, HSN).astype(np.float32)
+    t = np.linspace(38.4, -4.9, HTN).astype(np.float32)
+    return s, t
+
+
+def make_hit_pattern(kind: str, K: int, seed: int = 0) -> np.ndarray:
+    """An (HSN, HTN) float32 m_hit: "none" (no pixel hits), "all" (every
+    pixel, on random slices, slice K - 1 and slice 24 among them), or
+    "mixed" (a disk of hits dense enough that a block holds more than its
+    warps take at a time, with scattered hits and misses)."""
+    rng = np.random.RandomState(seed)
+    k = rng.randint(0, K, size=(HSN, HTN)).astype(np.float32)
+    k[::7, ::5] = K - 1
+    k[3, 4] = 24.0
+    if kind == "none":
+        return np.full((HSN, HTN), -1.0, dtype=np.float32)
+    if kind == "all":
+        return k
+    s, t = np.meshgrid(np.arange(HSN), np.arange(HTN), indexing="ij")
+    disk = (s - 18) ** 2 + (t - 14) ** 2 < 120
+    keep = disk | (rng.rand(HSN, HTN) < 0.1)
+    return np.where(keep, k, -1.0).astype(np.float32)

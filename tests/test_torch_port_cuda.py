@@ -19,9 +19,10 @@ from isosurfacesuperresolution_tpu_torch.render import sweep_tiled as PT
 
 from isosurfacesuperresolution_tpu_torch.volume import packed as PP
 
-from _torch_port_inputs import (BSN, BTILE, BTN, CASES, SN, TILE, TN, TSN,
-                                TTN, make_ao_field, make_block_ao_field,
-                                make_block_inputs, make_inputs,
+from _torch_port_inputs import (BSN, BTILE, BTN, CASES, HSN, HTN, SN, TILE,
+                                TN, TSN, TTN, make_ao_field,
+                                make_block_ao_field, make_block_inputs,
+                                make_hit_grids, make_hit_pattern, make_inputs,
                                 make_packed_ao_field, make_packed_inputs,
                                 make_tiled_ao_field, make_tiled_inputs)
 
@@ -264,6 +265,75 @@ def test_ao_capture_tiled_kernel_matches_plain(field, fd, mm):
     # (1e-6); bf16 within one bf16 step of a term (2^-8 relative)
     np.testing.assert_allclose(got, want.numpy(), atol=1e-6,
                                rtol=0 if mm == "float32" else 2.0 ** -8)
+
+
+def _capture_close(got, want, m_hit, mm):
+    """A capture against its plain version on a hit pattern: 0 wherever
+    no pixel hits; bf16 resampling bit for bit (exact products, sums of
+    at most two terms, the kernel's order is the plain version's, as
+    `test_torch_port_ao_lanes.py` shows on the CPU); float32 within
+    rounding (1e-6: the plain version's matmuls may fuse a product into
+    a sum)."""
+    hit = m_hit.numpy() >= 0
+    got, want = got.cpu().numpy(), want.numpy()
+    assert (got[:, ~hit] == 0).all()
+    if mm == "bfloat16":
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "all", "mixed"])
+@pytest.mark.parametrize("field,fd,mm", AO_CASES)
+def test_ao_capture_tiled_kernel_on_hit_patterns(field, fd, mm, kind):
+    """No hit, every pixel a hit, and blocks with more hits than their
+    warps take at a time (`make_hit_pattern`), over three blocks of the
+    kernel, the last ragged, with taps outside the volume."""
+    _need_card()
+    _, meta, _, _, _, _, bmax, iso = make_tiled_inputs("uint8")
+    sg, tg = make_hit_grids()
+    m_hit = torch.from_numpy(make_hit_pattern(kind, meta.shape[0]))
+    cpu = [torch.from_numpy(a) for a in (meta, sg, tg)]
+    ao, a_scale, a_offset = make_tiled_ao_field(fd, field == "uint8")
+    xyzc = torch.from_numpy(np.ascontiguousarray(ao.transpose(2, 3, 0, 1)))
+    if field == "bfloat16":
+        xyzc = xyzc.to(torch.bfloat16)
+    view = xyzc.permute(2, 3, 0, 1)
+    kw = dict(tile=8, dtype=getattr(torch, mm), ao_scale=a_scale,
+              ao_offset=a_offset, field_downsample=fd)
+    before = PT.ao_capture_tiled_kernel.launches
+    got = PT.ao_capture_tiled(view.cuda(), *[a.cuda() for a in cpu], HSN,
+                              HTN, m_hit.cuda(),
+                              torch.from_numpy(bmax).cuda(), 8, iso, **kw)
+    torch.cuda.synchronize()
+    assert PT.ao_capture_tiled_kernel.launches == before + 1
+    want = PT.ao_capture_tiled_plain(view, *cpu, HSN, HTN, m_hit,
+                                     torch.from_numpy(bmax), 8, iso, **kw)
+    _capture_close(got, want, m_hit, mm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "all", "mixed"])
+@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
+def test_ao_capture_packed_kernel_on_hit_patterns(mm, kind):
+    _need_card()
+    _, meta, _, _, _, _, _, _ = make_packed_inputs("uint8")
+    sg, tg = make_hit_grids()
+    m_hit = torch.from_numpy(make_hit_pattern(kind, meta.shape[0]))
+    cpu = [torch.from_numpy(a) for a in (meta, sg, tg)]
+    pao = PP.pack_ao_axis(torch.from_numpy(make_packed_ao_field()), tile=8)
+    gpu = PP.PackedAOAxisVolume(pao.atlas.cuda(), pao.slots.cuda(),
+                                pao.shape)
+    before = PT.ao_capture_packed_kernel.launches
+    got = PT.ao_capture_packed(gpu, *[a.cuda() for a in cpu], HSN, HTN,
+                               m_hit.cuda(), dtype=getattr(torch, mm))
+    torch.cuda.synchronize()
+    assert PT.ao_capture_packed_kernel.launches == before + 1
+    want = PT.ao_capture_packed_plain(pao, *cpu, HSN, HTN, m_hit,
+                                      dtype=getattr(torch, mm))
+    _capture_close(got, want, m_hit, mm)
 
 
 def _packed_case(store, tol):
