@@ -88,11 +88,32 @@ seconds; any failure ends the run with a non-zero exit code:
    `planar_int8` through `InferencePipeline`, 20 frames, then the float
    bf16 frame at the same cameras for the difference int8 makes;
 20. card vs CPU on three chained small int8 frames and on small frames of
-   run00017 with `use_sn`.
+   run00017 with `use_sn`;
+21. the loader at full width: `LoadedModel.from_run_dir(run00017,
+   fast=True)` and the unfused model through the non-planar frame, 10
+   orbit frames each (their first frames' rgb equal in the interior, 8
+   px border excluded, within a stated bound), and the unfused model
+   with the exact gather warp (`fast_warp=False`); the planar frames of the
+   fast model equal the main path's bit for bit (the planar engine
+   ignores `fused_upsample`); run00017 exported to `build/run00017.pth`
+   and read back through `from_run_dir`: every weight and a non-planar
+   frame bit for bit;
+22. the GUI's modes: 20 frames of `InferencePipeline(upscale_mode=
+   "bicubic")`, then the main path with `set_render_params(isovalue=0.4)`
+   after frame 10: the G-buffer's mask changes, the state follows the new
+   mask, and the `FusedFrame`, its planar tables and weights are the
+   same objects;
+23. `LoadedModel.inference` (the exact gather warp) on run00017, 10
+   recurrent steps at 480x270 on rendered G-buffers, and card vs CPU on
+   two steps of a small input;
+24. card vs CPU on small seeded nets of each EnhanceNet option (BN, SN,
+   pixelShuffle, bicubic) and of RCAN, TecoGAN and SubpixelNet, then one
+   forward each of RCAN (10 x 20 blocks), TecoGAN and SubpixelNet at
+   full width (64 features, 480x270 -> 1920x1080), timed.
 
-In phases 4, 6, 7, 10, 11, 15, 16, 18 and 19 the launch counts are zeroed
-just before each run and read just after it, and frames 3 onwards must
-make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
+In phases 4, 6, 7, 10, 11, 15, 16, 18, 19 and 21-23 the launch counts
+are zeroed just before each run and read just after it, and frames 3
+onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
 of kernel numbers, the card line, and last the device line.  Float32
 matmuls and convolutions run without TF32 throughout
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
@@ -157,6 +178,26 @@ MAX_SH_REL = 2.0 ** -8
 # bf16 step, at most 2^-7 of the value
 MAX_PHASE_ABS = {"float32": 1e-4, "bfloat16": 0.06}
 MAX_PHASE_REL = {"float32": 1e-3, "bfloat16": 2.0 ** -7 + 1e-3}
+# fused vs unfused upsample, first frame's rgb: equal maths in the
+# interior, float32 convs of other shapes (other cuDNN algorithms), and
+# normals normalized before the shading (short vectors amplify); the
+# 1-px border of each high-res conv reaches ~6 px inward
+MAX_FUSED_INTERIOR = 1e-3
+# the isovalue the slider moves the main path's 0.5 to after frame 10
+ISO_SLIDER = 0.4
+# LoadedModel.inference card vs CPU: float32 through 26 convs twice in
+# other sum orders (1e-4 a pass, as the CPU tests hold oneDNN against
+# XLA), the second step's warp carrying the first's differences
+MAX_INFER_DIFF = 1e-3
+# the zoo's small nets card vs CPU (as the `cuda` tests): float32
+MAX_ZOO_DIFF = 1e-4
+ZOO_SMALL = (("EnhanceNet use_bn", dict(use_bn=True)),
+             ("EnhanceNet use_sn", dict(use_sn=True)),
+             ("EnhanceNet pixelShuffle", dict(upsample="pixelShuffle")),
+             ("EnhanceNet bicubic", dict(upsample="bicubic")),
+             ("RCAN 2x2", dict(model="RCAN")),
+             ("TecoGAN", dict(model="TecoGAN")),
+             ("SubpixelNet", dict(model="SubpixelNet")))
 
 
 def log(msg: str) -> None:
@@ -723,8 +764,16 @@ def main() -> int:
         Config, RenderConfig)
     from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import (
         LoadedModel)
+    from isosurfacesuperresolution_tpu_torch.infer import torch_export
     from isosurfacesuperresolution_tpu_torch.infer.pipeline import (
-        FusedFrame, InferencePipeline, initial_state)
+        FusedFrame, InferencePipeline, fp32_convs, initial_state)
+    from isosurfacesuperresolution_tpu_torch.models import (
+        generators as gen_mod)
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network)
+    from isosurfacesuperresolution_tpu_torch.ops.inpaint import inpaint_flow
+    from isosurfacesuperresolution_tpu_torch.render.raycast import (
+        gbuffer_to_low_input)
     from isosurfacesuperresolution_tpu_torch import ops as port_ops
     from isosurfacesuperresolution_tpu_torch import profile_convs
     from isosurfacesuperresolution_tpu_torch.infer import planar as planar_mod
@@ -1657,8 +1706,219 @@ def main() -> int:
             lm.model.to("cuda")
             check_card_vs_cpu(tag, outs, False)
 
+    run17 = str(ROOT / "artifacts" / "run00017")
+    with phase("21 the loader at full width: run00017 fast and unfused, "
+               ".pth round trip"):
+        lm_fast = LoadedModel.from_run_dir(run17, fast=True, device="cuda")
+        if not (lm_fast.cfg.model.fused_upsample and lm_fast.model.fuse):
+            raise RuntimeError("fast=True did not select the fused upsample")
+        firsts = {}
+        for tag, lmx, fast_warp in (
+                ("non-planar unfused", lm, True),
+                ("non-planar fast", lm_fast, True),
+                ("non-planar exact warp", lm, False)):
+            ff = FusedFrame(lmx.model, lmx.cfg, frame_cfg, planar="off",
+                            device="cuda", fast_warp=fast_warp)
+            st = [initial_state(lmx.cfg, frame_cfg, planar="off",
+                                device="cuda")]
+            firsts[tag] = ff(grid, cam_at(0.0), cam_at(0.0), st[0])[0]
+
+            def nonplanar21(i, ff=ff, st=st):
+                rgb, _, st[0] = ff(grid, cam_at(0.03 * i),
+                                   cam_at(0.03 * max(i - 1, 0)), st[0])
+                return rgb
+
+            rgb, launches = drive(nonplanar21, 10, tag, counters)
+            check_rgb(rgb, st[0].prev_high[..., 0] > 0.0, (1080, 1920, 3))
+            expect(launches, {"sweep_march": 10}, tag)
+            add(launches)
+            del ff, st
+        d = (firsts["non-planar fast"] - firsts["non-planar unfused"]).abs()
+        inner = float(d[8:-8, 8:-8].max())
+        log(f"[loader] first frame, fast vs unfused rgb: max |diff| "
+            f"{float(d.max()):.3g} overall, {inner:.3g} in the interior "
+            f"(8 px border excluded; bound {MAX_FUSED_INTERIOR}); ms/frame "
+            f"fast {FRAME_MS['non-planar fast']:.2f}, unfused "
+            f"{FRAME_MS['non-planar unfused']:.2f}, unfused with the exact "
+            f"gather warp {FRAME_MS['non-planar exact warp']:.2f}")
+        if inner > MAX_FUSED_INTERIOR:
+            raise RuntimeError("the fused and unfused networks disagree "
+                               "in the interior")
+        outs21 = []
+        for lmx in (lm, lm_fast):
+            pipe = InferencePipeline(lmx.model, lmx.cfg, frame_cfg,
+                                     device="cuda")
+            outs21.append([pipe.frame(grid, cam_at(0.03 * i))
+                           for i in range(3)])
+            del pipe
+        same = all(torch.equal(a, b) for a, b in zip(*outs21))
+        log(f"[loader] planar frames of fast=True equal the main path's "
+            f"bit for bit (3 frames): {same}")
+        if not same:
+            raise RuntimeError("fast=True changed the planar frame")
+        pth = ROOT / "build" / "run00017.pth"
+        pth.parent.mkdir(parents=True, exist_ok=True)
+        torch_export.export_reference_pth(lm, str(pth))
+        lm_pth = LoadedModel.from_run_dir(str(pth), device="cuda")
+        a, b = lm.model.state_dict(), lm_pth.model.state_dict()
+        same_w = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                              for k in a)
+        rgbs = []
+        for lmx in (lm, lm_pth):
+            ff = FusedFrame(lmx.model, lmx.cfg, frame_cfg, planar="off",
+                            device="cuda")
+            rgbs.append(ff(grid, cam_at(0.0), cam_at(0.0), initial_state(
+                lmx.cfg, frame_cfg, planar="off", device="cuda"))[0])
+        same_f = torch.equal(*rgbs)
+        log(f"[loader] {pth.name} ({pth.stat().st_size} bytes) read back "
+            f"through from_run_dir: {len(b)} weights equal bit for bit: "
+            f"{same_w}; a non-planar frame equal bit for bit: {same_f}")
+        if not (same_w and same_f and not lm_pth.bare_input):
+            raise RuntimeError("the .pth round trip changed the model")
+        del lm_pth, outs21, rgbs, firsts, d
+
+    with phase("22 the GUI's modes: bicubic, and set_render_params on the "
+               "main path"):
+        pipe = InferencePipeline(lm.model, lm.cfg, frame_cfg,
+                                 upscale_mode="bicubic", device="cuda")
+        rgb, launches = drive(lambda i: pipe.frame(grid, cam_at(0.03 * i)),
+                              20, "bicubic", counters)
+        check_rgb(rgb, pipe.state.prev_high[..., 0] > 0.0, (1080, 1920, 3))
+        expect(launches, {"sweep_march": 20}, "bicubic")
+        add(launches)
+        pipe = InferencePipeline(lm.model, lm.cfg, frame_cfg, device="cuda")
+        frame22, tables22 = pipe._frame, pipe._frame.planar_tables
+        net22 = pipe._frame.planar_net
+        shares = {}
+
+        def slider(i):
+            if i == 10:
+                pipe.set_render_params(isovalue=ISO_SLIDER)
+            rgb = pipe.frame(grid, cam_at(0.03 * i))
+            if i in (9, 19):
+                shares[i] = (pipe.state.prev_high[..., 0:16] > 0.0).float(
+                ).mean()
+            return rgb
+
+        rgb, launches = drive(slider, 20, "planar f32 + isovalue slider",
+                              counters)
+        check_rgb(rgb, pipe.state.prev_high[..., 0:16] > 0.0,
+                  (1080, 1920, 3))
+        expect(launches, {"sweep_march": 20}, "planar f32 + isovalue slider")
+        add(launches)
+        cam19, cam18 = cam_at(0.03 * 19), cam_at(0.03 * 18)
+        g_old = render_gbuffer_sweep(grid, cam19, cam18, frame_cfg)
+        g_new = render_gbuffer_sweep(grid, cam19, cam18, frame_cfg,
+                                     pipe.render_params)
+        m_old, m_new = (float((g[..., 3] > 0.5).float().mean())
+                        for g in (g_old, g_new))
+        moved = float(((g_old[..., 3] > 0.5) != (g_new[..., 3] > 0.5)
+                       ).float().mean())
+        s9, s19 = float(shares[9]), float(shares[19])
+        kept = (pipe._frame is frame22 and frame22.planar_tables is tables22
+                and frame22.planar_net is net22)
+        log(f"[slider] isovalue {frame_cfg.isovalue} -> {ISO_SLIDER} after "
+            f"frame 10: G-buffer mask share at frame 20's camera {m_old:.4f}"
+            f" -> {m_new:.4f} ({moved:.4f} of the pixels changed); the "
+            f"state's mask share frame 10 {s9:.4f}, "
+            f"frame 20 {s19:.4f}; FusedFrame, planar tables and weights "
+            f"kept: {kept}; ms/frame {FRAME_MS['planar f32 + isovalue slider']:.2f}"
+            f" (bicubic {FRAME_MS['bicubic']:.2f})")
+        if not (kept and moved > 1e-3
+                and abs(s19 - m_new) < abs(s19 - m_old)):
+            raise RuntimeError("set_render_params did not reach the frame "
+                               "or rebuilt it")
+        del pipe, frame22, tables22, net22, g_old, g_new
+
+    with phase("23 LoadedModel.inference with the exact warp, 10 steps"):
+        lows, flows = [], []
+        for i in range(10):
+            fr = render_gbuffer_sweep(grid, cam_at(0.03 * i),
+                                      cam_at(0.03 * max(i - 1, 0)), frame_cfg)
+            lows.append(gbuffer_to_low_input(fr)[None])
+            flows.append(inpaint_flow(fr[None, ..., 8:10],
+                                      fr[None, ..., 3:4], iterations=8))
+        prev = [None]
+
+        def step(i):
+            prev[0] = lm.inference(lows[i], prev[0], flows[i])
+            return prev[0]
+
+        out, launches = drive(step, 10, "inference exact warp", counters)
+        expect(launches, {}, "inference exact warp")
+        log(f"[inference] {FRAME_MS['inference exact warp']:.2f} ms a step "
+            f"(480x270 -> 1920x1080, steps 3-10; no render, inpaint or "
+            f"shading in the step)")
+        if tuple(out.shape) != (1, 1080, 1920, 6) or not bool(
+                torch.isfinite(out).all()):
+            raise RuntimeError(f"inference: {tuple(out.shape)} or "
+                               f"non-finite")
+        gen = torch.Generator().manual_seed(23)
+        lo = [torch.rand((1, 24, 32, 5), generator=gen) * 2 - 1
+              for _ in range(2)]
+        fl = torch.rand((1, 24, 32, 2), generator=gen) * 0.1 - 0.05
+        res = {}
+        for dev in ("cuda", "cpu"):
+            lm.model.to(dev)
+            p = None
+            for x in lo:
+                p = lm.inference(x.to(dev), p, fl.to(dev))
+            res[dev] = p.cpu()
+        lm.model.to("cuda")
+        err = float((res["cuda"] - res["cpu"]).abs().max())
+        log(f"[inference] card vs CPU, 2 steps at 32x24: max |diff| "
+            f"{err:.3g} (bound {MAX_INFER_DIFF})")
+        if err > MAX_INFER_DIFF:
+            raise RuntimeError("inference: card and CPU disagree")
+        del lows, flows, prev, out
+
+    with phase("24 model options and the zoo: card vs CPU, full-width "
+               "forwards"):
+        gen = torch.Generator().manual_seed(24)
+        for tag, kw in ZOO_SMALL:
+            mcfg = dataclasses.replace(m, num_residual_blocks=2,
+                                       num_features=16, **kw)
+            torch.manual_seed(24)
+            net = (create_network(mcfg) if mcfg.model != "RCAN" else
+                   gen_mod.RCAN(mcfg, num_groups=2, num_blocks=2))
+            for t in net.state_dict().values():
+                if t.dim() == 1:     # biases, BN scales and statistics
+                    t.uniform_(0.5, 1.5, generator=gen)
+            net.load_state_dict(net.state_dict())   # SN: normalize again
+            net.eval().requires_grad_(False)
+            x = torch.rand((1, 16, 16, gen_mod.network_input_channels(mcfg)),
+                           generator=gen)
+            with torch.no_grad(), fp32_convs():
+                want = net(x)[0]
+                got = net.cuda()(x.cuda())[0].cpu()
+            err = float((got - want).abs().max())
+            log(f"[zoo {tag}] card vs CPU at 16x16 -> {tuple(got.shape)}: "
+                f"max |diff| {err:.3g} (bound {MAX_ZOO_DIFF})")
+            if err > MAX_ZOO_DIFF or got.shape != want.shape:
+                raise RuntimeError(f"zoo {tag}: card and CPU disagree")
+        for name in ("RCAN", "TecoGAN", "SubpixelNet"):
+            mcfg = dataclasses.replace(m, model=name)
+            torch.manual_seed(24)
+            net = create_network(mcfg).cuda().eval().requires_grad_(False)
+            x = torch.rand((1, 270, 480,
+                            gen_mod.network_input_channels(mcfg)),
+                           generator=gen).cuda()
+            with torch.no_grad(), fp32_convs():
+                ms = time_cuda(lambda: net(x), 3)
+                y = net(x)[0]
+            torch.cuda.synchronize()
+            n_par = sum(t.numel() for t in net.parameters())
+            log(f"[zoo {name} full width] {n_par} parameters, 480x270 -> "
+                f"{tuple(y.shape)}: {ms:.2f} ms a forward (median of 3, "
+                f"float32), finite: {bool(torch.isfinite(y).all())}")
+            if tuple(y.shape) != (1, 1080, 1920, 6) or not bool(
+                    torch.isfinite(y).all()):
+                raise RuntimeError(f"{name} at full width: wrong shape or "
+                                   f"non-finite output")
+            del net, x, y
+
     log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
-        f"18 and 19: {path_launches}")
+        f"18, 19, 21 and 22: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),

@@ -1,10 +1,10 @@
 """Configuration dataclasses of the port.
 
 Own copies of the JAX package's `config.py` dataclasses, holding the fields
-that the ported path reads; field names, defaults and meanings are the
-reference's.  `config_from_json` is the counterpart of
-`infer/loadedmodel.config_from_json` and reads a run directory's flattened
-``config.json``.
+that the ported path reads (`TrainConfig` whole); field names, defaults
+and meanings are the reference's.  `config_from_json` is the counterpart
+of `infer/loadedmodel.config_from_json` and reads a run directory's
+flattened ``config.json``.
 """
 
 from __future__ import annotations
@@ -75,14 +75,14 @@ class ShadingConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Generator configuration (EnhanceNet is the one ported model)."""
+    """Generator configuration."""
 
-    model: str = "EnhanceNet"
+    model: str = "EnhanceNet"          # EnhanceNet | RCAN | TecoGAN | SubpixelNet
     upscale_factor: int = 4
     input_channels: int = 5
     output_channels: int = 6
     channel_mask: Tuple[int, ...] = (0, 1, 2, 3, 4)
-    upsample: str = "bilinear"         # nearest | bilinear
+    upsample: str = "bilinear"         # nearest | bilinear | bicubic | pixelShuffle
     recon_type: str = "residual"       # residual | direct
     use_bn: bool = False
     use_sn: bool = False
@@ -101,24 +101,71 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Training operating point (reference: README.md:50-71,
+    mainVideoUnshaded.py).  Inference reads ``initial_image_mode``,
+    ``disable_temporal`` and ``ao_inverted``; the rest waits for the
+    trainer."""
+
+    batch_size: int = 16
+    crop_size: int = 32                # low-res crop; high-res = 4x
+    num_frames: int = 10               # frames per clip (BPTT length)
+    samples: int = 500                 # crops sampled per epoch
+    test_fraction: float = 0.2
+    epochs: int = 1000
+    learning_rate: float = 1e-4
+    optimizer: str = "adam"            # adam | rmsprop | rprop (reference --optim)
+    lr_gamma: float = 0.5
+    lr_step: int = 500
+    beta1: float = 0.9
+    beta2: float = 0.999
+    # global-norm gradient clipping (0 = off)
+    grad_clip: float = 1.0
+    seed: int = 42
+    initial_image_mode: str = "zero"   # zero | unshaded | input
+    disable_temporal: bool = False
+    ao_inverted: bool = False
+    min_fill_rate: float = 0.5         # crop acceptance (datasetVideo.py:266-301)
+    augment: bool = False
+    # adversarial training
+    adv_training: bool = False
+    discr_steps: int = 1
+    gen_steps: int = 1
+    discr_lr: float = 1e-4
+    # checkpointing / logging
+    run_dir_base: str = "runs"
+    checkpoint_every: int = 1
+    remat: bool = False                # recompute each frame in the backward
+
+
+@dataclass(frozen=True)
 class Config:
     render: RenderConfig = field(default_factory=RenderConfig)
     shading: ShadingConfig = field(default_factory=ShadingConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
 
 
 def config_from_json(path: str) -> Config:
     """Rebuild a Config from the flattened ``config.json`` of a run dir.
 
-    Like the reference, only the ``model.*`` section is restored; render
-    and shading keep their defaults (the caller passes its own)."""
+    Like the reference, the ``model.*`` and ``train.*`` sections are
+    restored (keys the dataclasses do not know are skipped); render and
+    shading keep their defaults (the caller passes its own)."""
     with open(path) as f:
         flat = json.load(f)
-    names = {f.name for f in dataclasses.fields(ModelConfig)}
-    kw = {}
-    for k, v in flat.items():
-        if k.startswith("model."):
-            name = k[len("model."):]
-            if name in names:
-                kw[name] = tuple(v) if isinstance(v, list) else v
-    return Config(model=ModelConfig(**kw))
+
+    def section(prefix, cls):
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {}
+        for k, v in flat.items():
+            if k.startswith(prefix + ".") and k[len(prefix) + 1:] in names:
+                kw[k[len(prefix) + 1:]] = tuple(v) if isinstance(v, list) \
+                    else v
+        return cls(**kw)
+
+    return Config(model=section("model", ModelConfig),
+                  train=section("train", TrainConfig))

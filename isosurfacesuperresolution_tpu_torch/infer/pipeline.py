@@ -15,6 +15,8 @@ channel-first RGB (3, Hh, Wh) and carries a (1, h, w, 96) nested state;
 `InferencePipeline.frame` returns (Hh, Wh, 3) either way.  The grid is a
 dense `BrickGrid` or a packed `SparseBrickGrid`, as in JAX.  A frame runs
 its float32 convolutions in full float32 on the card (`fp32_convs`).
+`InferencePipeline.set_render_params` changes the isovalue, light and
+material of the next frame and rebuilds nothing.
 """
 
 from __future__ import annotations
@@ -23,15 +25,15 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from isosurfacesuperresolution_tpu_torch.config import (
     Config, RenderConfig, ShadingConfig)
 from isosurfacesuperresolution_tpu_torch.device import (
     DeviceLike, resolve_device)
 from isosurfacesuperresolution_tpu_torch.infer import planar as planar_mod
-from isosurfacesuperresolution_tpu_torch.models.generators import EnhanceNet
 from isosurfacesuperresolution_tpu_torch.models.videotools import (
-    flatten_high, initial_image)
+    flatten_high, initial_image, warp_upscale)
 from isosurfacesuperresolution_tpu_torch.ops.inpaint import inpaint_flow
 from isosurfacesuperresolution_tpu_torch.ops.resize import resize
 from isosurfacesuperresolution_tpu_torch.ops.warp_fast import (
@@ -45,7 +47,7 @@ from isosurfacesuperresolution_tpu_torch.render.shading import (
 from isosurfacesuperresolution_tpu_torch.render.sweep import (
     AnyGrid, render_gbuffer_sweep)
 from isosurfacesuperresolution_tpu_torch.utils.spectral_norm import (
-    apply_sn_tree)
+    SpectralNormalizedModule, apply_sn_tree)
 
 
 class FrameState(NamedTuple):
@@ -114,20 +116,24 @@ class FusedFrame:
     (rgb, low G-buffer (h, w, 12), new_state)``, rgb (Hh, Wh, 3), or
     channel-first (3, Hh, Wh) from the planar engine.
 
-    upscale_mode: "network" (the trained EnhanceNet), or "nearest" /
-    "bilinear" resizes of the low-res input.  The warp of the previous
-    state is always the shift-blend warp with a clamp of 8 px, as in the
-    JAX fused frame's default.  The planar engine's kernels, index tensors
-    and constants are built here, once, on the frame's device, from the
-    model's weights spectrally normalized first under ``use_sn`` (which
-    the interleaved network's forward refuses)."""
+    upscale_mode: "network" (the model), or "nearest" / "bilinear" /
+    "bicubic" resizes of the low-res input.  ``fast_warp`` (the default,
+    as in JAX) warps the previous state of the interleaved network with
+    the shift-blend warp clamped to 8 px, ``False`` with the exact gather
+    warp of training (`models.videotools.warp_upscale`); the planar engine
+    has its own warp.  The planar engine's kernels, index tensors and
+    constants are built here, once, on the frame's device, from the
+    model's weights spectrally normalized first under ``use_sn``; the
+    interleaved network then runs through `SpectralNormalizedModule`."""
 
-    def __init__(self, model: Optional[EnhanceNet], cfg: Config,
+    def __init__(self, model: Optional[nn.Module], cfg: Config,
                  render_cfg: RenderConfig, upscale_mode: str = "network",
                  shading_cfg: Optional[ShadingConfig] = None,
-                 planar: str = "auto", device: DeviceLike = None):
+                 planar: str = "auto", device: DeviceLike = None,
+                 fast_warp: bool = True):
         self.use_planar = resolve_planar(cfg, upscale_mode, planar)
-        if upscale_mode not in ("network", "nearest", "bilinear"):
+        if upscale_mode not in ("network", "nearest", "bilinear",
+                                "bicubic"):
             raise ValueError(f"unknown upscale mode {upscale_mode!r}")
         if upscale_mode == "network" and model is None:
             raise ValueError("upscale_mode='network' needs a model")
@@ -135,7 +141,11 @@ class FusedFrame:
             raise ValueError(
                 f"unknown or unported renderer {render_cfg.renderer!r}")
         self.device = resolve_device(device)
+        if (cfg.model.use_sn and model is not None
+                and not isinstance(model, SpectralNormalizedModule)):
+            model = SpectralNormalizedModule(model)
         self.model = model
+        self.fast_warp = fast_warp
         self.cfg = cfg
         self.render_cfg = render_cfg
         self.upscale_mode = upscale_mode
@@ -143,7 +153,7 @@ class FusedFrame:
                             else cfg.shading)
         self.planar_net = self.planar_tables = None
         if self.use_planar:
-            params = model.state_dict()
+            params = model.state_dict()         # the raw weights
             if cfg.model.use_sn:
                 # the --useSN transform, a pure function of the weights,
                 # which JAX's fused frame applies before `planar_apply`
@@ -197,8 +207,9 @@ class FusedFrame:
             prev = (state.prev_high if state.has_prev else
                     initial_image(low, m.output_channels, "unshaded",
                                   False, u))
-            warped = warp_upscale_fast(prev, flow, u, special_mask=True,
-                                       max_disp=8)
+            warped = (warp_upscale_fast(prev, flow, u, special_mask=True,
+                                        max_disp=8) if self.fast_warp
+                      else warp_upscale(prev, flow, u, special_mask=True))
             net_in = torch.cat([low, flatten_high(warped, u)], -1)
             pred, _ = self.model(net_in)
             out_high = clamp_output(pred)
@@ -215,7 +226,7 @@ class InferencePipeline:
     """Stateful wrapper around `FusedFrame` that tracks the previous camera,
     so each frame's flow is taken against it."""
 
-    model: Optional[EnhanceNet]
+    model: Optional[nn.Module]
     cfg: Config
     render_cfg: RenderConfig
     upscale_mode: str = "network"
@@ -238,6 +249,17 @@ class InferencePipeline:
         self.state = initial_state(self.cfg, self.render_cfg,
                                    self.upscale_mode, device=self.device)
         self._last_cam: Optional[CameraParams] = None
+
+    def set_render_params(self, **kw) -> None:
+        """Replace the isovalue, light or material knobs of the next
+        frames (the GUI sliders' path): a new `RenderParams`, the
+        `FusedFrame`, its planar tables and weights, and every table kept
+        with the grid stay as they are, as in JAX, where the knobs are
+        traced and nothing recompiles.  A baked AO field stays the one
+        baked at its own isovalue, as in JAX."""
+        rp = (self.render_params if self.render_params is not None
+              else RenderParams.from_config(self.render_cfg))
+        self.render_params = rp.replace(**kw)
 
     def frame(self, grid: AnyGrid, cam: CameraParams) -> torch.Tensor:
         """Render + super-resolve + shade one frame; (Hh, Wh, 3) on the

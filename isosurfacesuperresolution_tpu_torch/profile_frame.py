@@ -3,7 +3,7 @@
     python -m isosurfacesuperresolution_tpu_torch.profile_frame \
         [--frames N] [--variants planar,phase,phase_ao,nonplanar,...]
 
-The first four variants drive the interactive frame (trained run00017
+The first seven variants drive the interactive frame (trained run00017
 EnhanceNet, 256^3 blobs, iso 0.5, 480x270 -> 1920x1080, bf16 sweep, orbit
 steps of 0.03 rad):
 
@@ -14,6 +14,10 @@ steps of 0.03 rad):
 * ``phase_ao``: ``phase`` on the grid with the baked SH occlusion field
   (ao_samples 64, ao_mode "volume");
 * ``nonplanar``: the interleaved network (planar "off"), float32;
+* ``nonplanar_fast``: ``nonplanar`` with run00017 loaded ``fast=True``
+  (the fused upsample);
+* ``bicubic``: the GUI's bicubic mode (`InferencePipeline(...,
+  upscale_mode="bicubic")`), no network;
 * ``int8``: the frame `bench.py --int8` times: compute_dtype bfloat16,
   ``planar_int8`` (int8 post-training quantization of the trunk and
   post1-post3), no phase tail, run00017's trained weights (the bench
@@ -73,7 +77,8 @@ from isosurfacesuperresolution_tpu_torch.volume.packed import (
 
 ARTIFACTS = Path(__file__).resolve().parent.parent / "artifacts"
 RUN_DIR = ARTIFACTS / "run00017"
-VARIANTS = ("planar", "phase", "phase_ao", "nonplanar", "int8", "planar512",
+VARIANTS = ("planar", "phase", "phase_ao", "nonplanar", "nonplanar_fast",
+            "bicubic", "int8", "planar512",
             "gbuffer512", "gbuffer512_ao", "gbuffer512_aoc",
             "gbuffer512_packed", "gbuffer512_packed_ao", "planar512_packed")
 
@@ -202,16 +207,21 @@ def main() -> None:
             torch.cuda.synchronize()
             print(f"AO bake {time.time() - t:.3f} s (not in the frames)")
             rcfg = render_cfg.replace(ao_samples=64, ao_mode="volume")
-        if variant == "nonplanar":
+        if variant.startswith("nonplanar"):
             # the interleaved network: the fused frame with planar "off"
-            ff = FusedFrame(lm.model, cfg, rcfg, planar="off")
+            lmx = (LoadedModel.from_run_dir(str(RUN_DIR), fast=True)
+                   if variant == "nonplanar_fast" else lm)
+            cfg = lmx.cfg
+            ff = FusedFrame(lmx.model, cfg, rcfg, planar="off")
             st = [initial_state(cfg, rcfg, planar="off")]
 
             def step(i, ff=ff, st=st, g=g):
                 st[0] = ff(g, cam_at(0.03 * i),
                            cam_at(0.03 * max(i - 1, 0)), st[0])[2]
         else:
-            pipe = InferencePipeline(lm.model, cfg, rcfg)
+            pipe = InferencePipeline(
+                lm.model, cfg, rcfg,
+                upscale_mode="bicubic" if variant == "bicubic" else "network")
 
             def step(i, pipe=pipe, g=g):
                 pipe.frame(g, cam_at(0.03 * i))

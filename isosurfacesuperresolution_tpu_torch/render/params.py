@@ -3,7 +3,8 @@
 Counterpart of the JAX package's `render/params.py`.  There the knobs are
 traced arrays so that changing them does not recompile; PyTorch runs
 eagerly, so here they are plain host numbers that enter the device work as
-scalars.
+scalars.  ``replace`` is the GUI sliders' path
+(`infer/pipeline.InferencePipeline.set_render_params`).
 """
 
 from __future__ import annotations
@@ -31,3 +32,11 @@ class RenderParams(NamedTuple):
             specular_color=tuple(float(v) for v in cfg.specular_color),
             specular_exponent=float(cfg.specular_exponent),
         )
+
+    def replace(self, **kw) -> "RenderParams":
+        """A copy with the given knobs replaced, each cast as `from_config`
+        casts it: a float, or a tuple of floats for the vectors."""
+        return self._replace(**{
+            k: (tuple(float(x) for x in v) if isinstance(
+                getattr(self, k), tuple) else float(v))
+            for k, v in kw.items()})

@@ -616,3 +616,70 @@ def test_float32_frame_ignores_the_global_tf32_flag(planar, monkeypatch):
         outs.append(rgb)
         assert torch.backends.cudnn.allow_tf32 == flag
     assert torch.equal(outs[0], outs[1])
+
+
+ZOO = {
+    "enhancenet_bn": dict(use_bn=True),
+    "enhancenet_sn": dict(use_sn=True),
+    "enhancenet_pixelshuffle": dict(upsample="pixelShuffle"),
+    "enhancenet_bicubic": dict(upsample="bicubic"),
+    "enhancenet_fused": dict(fused_upsample=True),
+    "rcan": dict(model="RCAN"),
+    "tecogan": dict(model="TecoGAN"),
+    "subpixelnet": dict(model="SubpixelNet"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_zoo_card_matches_cpu(name):
+    """Each generator option and zoo model (2 blocks, 16 features, RCAN
+    with 2 groups of 2 blocks) on the card against the CPU on the same
+    seeded weights and input: float32 convs without TF32 in other
+    algorithms, 1e-4 on outputs of O(1)."""
+    _need_card()
+    from isosurfacesuperresolution_tpu_torch.config import ModelConfig
+    from isosurfacesuperresolution_tpu_torch.infer.pipeline import fp32_convs
+    from isosurfacesuperresolution_tpu_torch.models import generators as G
+    from isosurfacesuperresolution_tpu_torch.utils.spectral_norm import (
+        SpectralNormalizedModule)
+    cfg = ModelConfig(num_residual_blocks=2, num_features=16, **ZOO[name])
+    torch.manual_seed(0)
+    if cfg.model == "RCAN":
+        net = G.RCAN(cfg, num_groups=2, num_blocks=2)
+    else:
+        net = G.create_network(cfg)
+    for t in net.state_dict().values():
+        if t.dtype.is_floating_point and t.dim() == 1:
+            t.uniform_(0.5, 1.5)          # biases, BN scales and statistics
+    if isinstance(net, SpectralNormalizedModule):
+        net.load_state_dict(net.state_dict())
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        1, 16, 16, G.network_input_channels(cfg)).astype(np.float32))
+    with torch.no_grad(), fp32_convs():
+        want = net.eval()(x)[0]
+        got = net.cuda()(x.cuda())[0]
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (1, 64, 64, 6)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_exact_warp_and_bicubic_card_match_cpu():
+    """`warp_upscale` (`F.grid_sample`) and the bicubic resize on the card
+    against the CPU: float32, 1e-6."""
+    _need_card()
+    from isosurfacesuperresolution_tpu_torch.models.videotools import (
+        warp_upscale)
+    from isosurfacesuperresolution_tpu_torch.ops.resize import resize
+    rng = np.random.RandomState(1)
+    img = torch.from_numpy(rng.rand(1, 64, 96, 6).astype(np.float32))
+    flow = torch.from_numpy(rng.uniform(-0.1, 0.1, (1, 16, 24, 2)).astype(
+        np.float32))
+    for fn in (lambda a, f: warp_upscale(a, f, 4, special_mask=True),
+               lambda a, f: resize(a, size=(256, 384), method="bicubic")):
+        want = fn(img, flow)
+        got = fn(img.cuda(), flow.cuda())
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-6, rtol=0)

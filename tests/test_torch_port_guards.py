@@ -14,6 +14,7 @@ from isosurfacesuperresolution_tpu_torch import kernels
 from isosurfacesuperresolution_tpu_torch.config import (
     Config, ModelConfig, RenderConfig)
 from isosurfacesuperresolution_tpu_torch.infer import pipeline
+from isosurfacesuperresolution_tpu_torch.infer import torch_export
 from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import LoadedModel
 from isosurfacesuperresolution_tpu_torch.models.generators import EnhanceNet
 from isosurfacesuperresolution_tpu_torch import ops as port_ops
@@ -46,7 +47,8 @@ print(bad)
 NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
                "render.ao_sweep", "render.sweep_tiled", "volume.grid",
                "volume.packed", "ops.pallas_conv", "ops.packed_conv",
-               "utils.spectral_norm", "profile_convs")
+               "utils.spectral_norm", "profile_convs", "ops.sampling",
+               "infer.torch_import", "infer.torch_export")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -56,7 +58,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     names = names.split()
-    assert len(names) >= 37          # every module of the port was imported
+    assert len(names) >= 40          # every module of the port was imported
     for mod in NEW_MODULES:
         assert f"isosurfacesuperresolution_tpu_torch.{mod}" in names
     assert bad == "[]"
@@ -67,6 +69,12 @@ ENTRY_POINTS = {
     "sphere_volume": lambda: analytic.sphere_volume(8),
     "LoadedModel.from_run_dir": lambda: LoadedModel.from_run_dir(
         os.path.join(ROOT, "artifacts", "run00017")),
+    "LoadedModel.from_run_dir fast": lambda: LoadedModel.from_run_dir(
+        os.path.join(ROOT, "artifacts", "run00017"), fast=True),
+    "LoadedModel.from_params_npz": lambda: LoadedModel.from_params_npz(
+        os.path.join(ROOT, "artifacts", "run00017", "params.npz"), Config()),
+    "export_reference_pth": lambda: torch_export.export_reference_pth(
+        os.path.join(ROOT, "artifacts", "run00017"), os.devnull),
     "initial_state": lambda: pipeline.initial_state(
         Config(), RenderConfig(width=8, height=8)),
     "FusedFrame": lambda: pipeline.FusedFrame(

@@ -357,19 +357,36 @@ def test_use_sn_planar_frames_run00017_match_jax():
         assert np.abs(unnormalized.numpy() - jrgb).max() > 1e-2
 
 
-def test_use_sn_interleaved_network_is_refused():
-    """The interleaved network's forward refuses use_sn (not ported), so a
-    non-planar frame of such a model raises instead of running without
-    the normalization."""
-    cfg = ModelConfig(num_residual_blocks=1, num_features=8, use_sn=True)
-    net = EnhanceNet(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        net(torch.zeros((1, 4, 4, 101)))
-    rcfg = RenderConfig(width=8, height=8, renderer="sweep")
-    frame = FusedFrame(net, Config(model=cfg), rcfg, planar="off",
-                       device="cpu")
-    cam = CameraParams.create(_eye(0.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        frame(analytic.sphere_volume(8, device="cpu"), cam, cam,
-              initial_state(Config(model=cfg), rcfg, planar="off",
-                            device="cpu"))
+def test_use_sn_interleaved_network_is_refused(small_net):
+    """The interleaved network with use_sn, which the port refused until
+    its forward ran through `SpectralNormalizedModule`: three chained
+    non-planar frames (`planar="off"`, the shift-blend warp) of the
+    seeded 2x64 net against JAX's fused frame with its SN-wrapped module,
+    and the raw forward differs.  float32 throughout; the non-planar
+    frames' RGB bound of `test_torch_port_frame.py` (1e-4)."""
+    net, jparams = small_net
+    mkw = dict(MODEL, use_sn=True)
+    cfg, rcfg = Config(model=ModelConfig(**mkw)), RenderConfig(**RENDER)
+    jcfg, jrcfg = JConfig(model=JModelConfig(**mkw)), JRenderConfig(**RENDER)
+    jfused = j_pipeline.make_fused_frame(create_network(jcfg.model), jcfg,
+                                         jrcfg, donate=False, planar="off")
+    jstate = j_pipeline.initial_state(jcfg, jrcfg, planar="off")
+    frame = FusedFrame(net, cfg, rcfg, planar="off", device="cpu")
+    assert isinstance(frame.model, SN.SpectralNormalizedModule)
+    state = initial_state(cfg, rcfg, planar="off", device="cpu")
+    grid = analytic.blobs_volume(32, num_blobs=5, device="cpu")
+    jgrid = j_analytic.blobs_volume(32, num_blobs=5)
+    angles = (0.0, 0.0, 0.06, 0.12)
+    for i in range(1, 4):
+        cur, prev = _eye(angles[i]), _eye(angles[i - 1])
+        rgb, _, state = frame(grid, CameraParams.create(cur),
+                              CameraParams.create(prev), state)
+        jrgb, _, jstate = jfused(jparams, jgrid, JCameraParams.create(cur),
+                                 JCameraParams.create(prev), jstate)
+        assert rgb.shape == (96, 128, 3)
+        np.testing.assert_allclose(rgb.numpy(), np.asarray(jrgb), atol=1e-4,
+                                   rtol=0)
+    x = torch.from_numpy(np.random.RandomState(9).rand(1, 4, 4, 101).astype(
+        np.float32))
+    with torch.no_grad():
+        assert float((frame.model(x)[0] - net(x)[0]).abs().max()) > 1e-3

@@ -294,9 +294,10 @@ def test_layout_keeping_helpers_match_torch(op):
 @pytest.mark.parametrize("flag", ["planar_int8", "use_sn"])
 def test_planar_refuses_unported_options(flag):
     """Both options run in the planar engine (held against JAX in
-    tests/test_torch_port_int8.py); what each still refuses: int8 with the
-    phase tail (JAX's own ValueError), and use_sn in the interleaved
-    network's forward (not ported)."""
+    tests/test_torch_port_int8.py).  int8 with the phase tail is refused
+    with JAX's own ValueError; use_sn, which the interleaved forward once
+    refused, runs there too (`SpectralNormalizedModule`) and equals JAX's
+    SN-wrapped module on the same weights."""
     if flag == "planar_int8":
         bad = ModelConfig(num_residual_blocks=1, num_features=64,
                           planar_phase_tail=True, planar_int8=True)
@@ -306,12 +307,26 @@ def test_planar_refuses_unported_options(flag):
             FusedFrame(EnhanceNet(bad), Config(model=bad),
                        RenderConfig(width=8, height=8), device="cpu")
         return
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network as p_create_network)
     cfg = ModelConfig(num_residual_blocks=1, num_features=8, use_sn=True)
     net = EnhanceNet(cfg)
     assert P.planar_apply(net, cfg, torch.zeros((1, 4, 4, 101))).shape == (
         1, 4, 4, 96)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        net(torch.zeros((1, 4, 4, 101)))
+    jnet = create_network(JModelConfig(num_residual_blocks=1, num_features=8,
+                                       use_sn=True))
+    x = np.random.RandomState(5).rand(1, 4, 5, 101).astype(np.float32)
+    variables = jnet.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    sn_net = p_create_network(cfg)
+    sn_net.load_state_dict(params_from_flax(variables))
+    ref = np.asarray(jnet.apply(variables, jnp.asarray(x))[0])
+    with torch.no_grad():
+        got = sn_net(torch.from_numpy(x))[0].numpy()
+    # float32, 6 convs of an 8-feature net on both sides
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    with torch.no_grad():
+        raw = net(torch.from_numpy(x))[0].numpy()
+    assert np.abs(raw - ref).max() > 1e-3       # the normalization matters
 
 
 def test_resolve_planar_follows_jax():
