@@ -109,11 +109,31 @@ seconds; any failure ends the run with a non-zero exit code:
 24. card vs CPU on small seeded nets of each EnhanceNet option (BN, SN,
    pixelShuffle, bicubic) and of RCAN, TecoGAN and SubpixelNet, then one
    forward each of RCAN (10 x 20 blocks), TecoGAN and SubpixelNet at
-   full width (64 features, 480x270 -> 1920x1080), timed.
+   full width (64 features, 480x270 -> 1920x1080), timed;
+25. the march oracle (`renderer="march"`, step 0.25) at 480x270 on the
+   main path's volume and camera against the sweep with B1, under the
+   sweep-vs-march bounds of tests/test_sweep.py (mask IoU, normal cosine
+   and depth in the interior eroded by 2 px), its ms/frame, and card vs
+   CPU on a 64x48 frame of a 64^3 volume;
+26. hemisphere-ray AO (32 samples, radius 0.2) on the torus view of
+   tests/test_ao_sweep.py at 480x270 over a 256^3 torus: the march with
+   ray AO against the sweep with the baked field (B1-ao) under that
+   test's bounds, and the ms/frame of the march and of the sweep with ray
+   AO (B1 plus the rays);
+27. the clip generator (`generate_sequences`) with one clip at its
+   reference settings (`SequenceConfig()`: 10 frames, 512^2 with 256 AO
+   samples, baked, and 128^2; `sweep_pallas`, step 0.5): shapes, finite
+   values, non-empty masks, 10 B1 and 10 B1-ao launches, seconds a clip;
+   the same clip with the scan (`renderer="sweep"`), and the kernels'
+   clip held against the scan's under the port's kernel-vs-scan bounds;
+   card vs CPU on a 3-frame 64^2 clip with the same seed;
+28. DVR: the sweep against the per-ray march at 480x270 under the bound
+   of tests/test_volume_render.py, ms/frame each; SSAO on a main-path
+   G-buffer, ms/frame.
 
-In phases 4, 6, 7, 10, 11, 15, 16, 18, 19 and 21-23 the launch counts
-are zeroed just before each run and read just after it, and frames 3
-onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
+In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-28 the launch
+counts are zeroed just before each run and read just after it; in phases
+4-23 frames 3 onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
 of kernel numbers, the card line, and last the device line.  Float32
 matmuls and convolutions run without TF32 throughout
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
@@ -191,6 +211,34 @@ ISO_SLIDER = 0.4
 MAX_INFER_DIFF = 1e-3
 # the zoo's small nets card vs CPU (as the `cuda` tests): float32
 MAX_ZOO_DIFF = 1e-4
+# sweep vs march oracle (tests/test_sweep.py): mask IoU, mean normal cosine
+# and mean |depth| difference in the interior eroded by 2 px
+MIN_MARCH_IOU = 0.93
+MIN_MARCH_COS = 0.995
+MAX_MARCH_DEPTH = 2e-3
+# ray AO vs the baked field (tests/test_ao_sweep.py): SH-L1 against a
+# 32-ray Monte Carlo estimate
+MAX_AO_MEAN_DIFF = 0.03
+MIN_AO_CORR = 0.6
+# the march oracle and the clip generator card vs CPU: the same float32
+# elementwise ops in the same order on both; a grazing ray may flip hit
+# or miss on one ulp of a sample (a pixel in a few hundred), and AO rays
+# likewise (one flip moves AO by 1/samples)
+MAX_ORACLE_MASK_MISMATCH = 0.01
+MAX_ORACLE_DIFF = 1e-3
+# a clip on the kernels (B1, B1-ao) vs the scan: the bounds of
+# tests/test_sweep_pallas.py and tests/test_torch_port_sweep.py (mask
+# mismatch share; where both hit depth 3e-3, normals 3e-2, flow 1e-3),
+# on the clip's channels (low: mask, normal, depth; high: + AO); AO
+# read from the same field at the same hit plane: the 0.02 that
+# tests/test_sweep_pallas.py holds its 95th percentile to, on the max
+MAX_SCAN_MASK_MISMATCH = 0.01
+SCAN_TOL_LOW = {1: 3e-2, 2: 3e-2, 3: 3e-2, 4: 3e-3}
+SCAN_TOL_HIGH = {**SCAN_TOL_LOW, 5: 0.02}
+MAX_SCAN_FLOW = 1e-3
+# sweep vs march DVR (tests/test_volume_render.py:46), 2-px border excluded
+MAX_DVR_MEAN = 0.015
+MAX_DVR_MAX = 0.15
 ZOO_SMALL = (("EnhanceNet use_bn", dict(use_bn=True)),
              ("EnhanceNet use_sn", dict(use_sn=True)),
              ("EnhanceNet pixelShuffle", dict(upsample="pixelShuffle")),
@@ -726,6 +774,301 @@ def expect(launches: dict, want: dict, tag: str) -> None:
     if launches != want:
         raise RuntimeError(f"[{tag}] kernel launches {launches}, expected "
                            f"{want}")
+
+
+def erode(m, iterations: int):
+    """Binary erosion of a (H, W) bool tensor by the 4-neighbour cross,
+    pixels outside the image counted empty (scipy's default)."""
+    for _ in range(iterations):
+        e = m.clone()
+        e[1:] &= m[:-1]
+        e[:-1] &= m[1:]
+        e[:, 1:] &= m[:, :-1]
+        e[:, :-1] &= m[:, 1:]
+        e[0], e[-1], e[:, 0], e[:, -1] = False, False, False, False
+        m = e
+    return m
+
+
+def counted(fn, tag: str, counters: dict, want: dict, add):
+    """Run ``fn()`` once with the launch counts zeroed just before and
+    read just after (a path run): (output, seconds on the host clock
+    around a synced call); the launches must be ``want``."""
+    import torch
+    torch.cuda.synchronize()
+    for holder, attr in counters.values():
+        setattr(holder, attr, 0)
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.time() - t
+    launches = {k: getattr(h, a) for k, (h, a) in counters.items()}
+    expect(launches, want, tag)
+    add(launches)
+    log(f"[{tag}] {sec * 1e3:.1f} ms, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return out, sec
+
+
+def sweep_vs_march(fr_m, fr_s) -> tuple:
+    """(mask IoU, mean normal cosine, mean |depth diff|, interior pixels)
+    of two G-buffers, as tests/test_sweep.py measures them."""
+    ma, mb = fr_m[..., 3] > 0.5, fr_s[..., 3] > 0.5
+    iou = float((ma & mb).sum()) / max(float((ma | mb).sum()), 1.0)
+    inner = erode(ma & mb, 2)
+    cos = (fr_m[..., 4:7][inner] * fr_s[..., 4:7][inner]).sum(-1)
+    dd = (fr_m[..., 7] - fr_s[..., 7]).abs()[inner]
+    return iou, float(cos.mean()), float(dd.mean()), int(inner.sum())
+
+
+def oracle_card_vs_cpu(tag: str, outs: dict, pairs) -> None:
+    """Card against CPU outputs ``outs[dev]``: for each (key, mask
+    channel, mask threshold) in ``pairs`` the share of pixels whose mask
+    differs and the largest difference where both masks hold; raise out
+    of bounds."""
+    for key, ch, thr in pairs:
+        a, b = outs["cuda"][key].cpu(), outs["cpu"][key]
+        ma, mb = a[..., ch] > thr, b[..., ch] > thr
+        mism = float((ma != mb).float().mean())
+        both = ma & mb
+        diff = float((a - b).abs()[both].max()) if bool(both.any()) else 0.0
+        log(f"[{tag} {key}] card vs CPU: mask mismatch {mism:.4f} (bound "
+            f"{MAX_ORACLE_MASK_MISMATCH}), max |diff| where both hit "
+            f"{diff:.3g} (bound {MAX_ORACLE_DIFF}), {int(both.sum())} "
+            f"pixels")
+        if (mism > MAX_ORACLE_MASK_MISMATCH or diff > MAX_ORACLE_DIFF
+                or not bool(both.any())):
+            raise RuntimeError(f"{tag} {key}: card and CPU disagree")
+
+
+def compare_clips(tag: str, a: dict, b: dict, tol_low: dict,
+                  tol_high: dict, tol_flow: float, max_mismatch: float,
+                  iterations: int) -> None:
+    """Two clips of one camera path (``low``, ``high``, ``flow``; numpy
+    arrays or tensors): for ``low`` and ``high`` the share of pixels
+    whose mask (channel 0 > 0) differs, at most ``max_mismatch``, and for
+    each channel c of ``tol_*`` the largest difference where both masks
+    hold, at most ``tol_*[c]``.  The flow is held to ``tol_flow`` where
+    both low masks hold and on the background farther than
+    ``iterations`` pixels from any mask flip: the inpainting spreads a
+    pixel's flow that far and no farther, and elsewhere averages the same
+    hits on both sides.  Raise out of bounds."""
+    import torch
+    import torch.nn.functional as F
+    a = {k: torch.as_tensor(v).cpu() for k, v in a.items()}
+    b = {k: torch.as_tensor(v).cpu() for k, v in b.items()}
+    for key, tols in (("low", tol_low), ("high", tol_high)):
+        ma, mb = a[key][..., 0] > 0, b[key][..., 0] > 0
+        mism = float((ma != mb).float().mean())
+        both = ma & mb
+        d = (a[key] - b[key]).abs()[both][:, list(tols)]
+        worst = {c: float(d[:, i].max()) if bool(both.any()) else 0.0
+                 for i, c in enumerate(tols)}
+        log(f"[{tag} {key}] mask mismatch {mism:.5f} (bound "
+            f"{max_mismatch}); max |diff| where both hit by channel "
+            f"{ {c: float(f'{w:.3g}') for c, w in worst.items()} } (bounds "
+            f"{tols}), {int((d > 1e-4).any(-1).sum())} of "
+            f"{int(both.sum())} pixels beyond 1e-4")
+        if (mism > max_mismatch or not bool(both.any())
+                or any(worst[c] > tols[c] for c in tols)):
+            raise RuntimeError(f"{tag} {key}: the clips disagree")
+    ma, mb = a["low"][..., 0] > 0, b["low"][..., 0] > 0
+    near = F.max_pool2d((ma != mb).float()[:, None], 2 * iterations + 1,
+                        stride=1, padding=iterations)[:, 0] > 0
+    d = (a["flow"] - b["flow"]).abs().amax(-1)
+    on_hits = float(d[ma & mb].max())
+    rest = ~ma & ~mb & ~near
+    off = float(d[rest].max()) if bool(rest.any()) else 0.0
+    log(f"[{tag} flow] max |diff| where both hit {on_hits:.3g}, on the "
+        f"inpainted background beyond {iterations} px of a mask flip "
+        f"{off:.3g} over {int(rest.sum())} pixels (bound {tol_flow})")
+    if on_hits > tol_flow or off > tol_flow:
+        raise RuntimeError(f"{tag} flow: the clips disagree")
+
+
+def reference_renderers(grid, counters: dict, add, frame_cfg) -> None:
+    """Phases 25-28: the march oracle, hemisphere-ray AO, the clip
+    generator and DVR + SSAO on the main path's volume (``grid``,
+    `blobs_volume(256, num_blobs=8)`) and camera."""
+    import numpy as np
+    import torch
+    from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+    from isosurfacesuperresolution_tpu_torch.data.generation import (
+        SequenceConfig, generate_sequences, random_camera_path)
+    from isosurfacesuperresolution_tpu_torch.render.ao_sweep import (
+        attach_baked_ao)
+    from isosurfacesuperresolution_tpu_torch.render.api import (
+        render_frame_gbuffer)
+    from isosurfacesuperresolution_tpu_torch.render.camera import (
+        CameraParams)
+    from isosurfacesuperresolution_tpu_torch.render.ssao import (
+        apply_screen_ao)
+    from isosurfacesuperresolution_tpu_torch.render.volume_render import (
+        render_volume_march, render_volume_sweep)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+
+    times = {}
+    cam = cam_at(0.0)
+    b1, b1ao = {"sweep_march": 1}, {"sweep_march_ao": 1}
+    with phase("25 the march oracle at 480x270 against the sweep (B1)"):
+        cfg_m = RenderConfig(width=480, height=270, isovalue=0.5,
+                             step_voxels=0.25, renderer="march")
+        cfg_s = cfg_m.replace(renderer="sweep_pallas")
+        render_frame_gbuffer(grid, cam, cam, cfg_m)          # warm-up
+        fr_m, times["march"] = counted(
+            lambda: render_frame_gbuffer(grid, cam, cam, cfg_m), "march",
+            counters, {}, add)
+        fr_s, _ = counted(lambda: render_frame_gbuffer(grid, cam, cam,
+                                                       cfg_s),
+                          "sweep_pallas", counters, b1, add)
+        iou, cos, dd, n_in = sweep_vs_march(fr_m, fr_s)
+        ok = iou > MIN_MARCH_IOU and cos > MIN_MARCH_COS and \
+            dd < MAX_MARCH_DEPTH and n_in > 50
+        log(f"[march vs sweep_pallas] mask IoU {iou:.4f} (> {MIN_MARCH_IOU})"
+            f", mean normal cosine {cos:.5f} (> {MIN_MARCH_COS}), mean "
+            f"|depth diff| {dd:.2e} (< {MAX_MARCH_DEPTH}) over {n_in} "
+            f"interior pixels; march {times['march'] * 1e3:.1f} ms/frame, "
+            f"hits {float((fr_m[..., 3] > 0.5).float().mean()):.4f}: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("the march oracle and the sweep disagree")
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            g = analytic.blobs_volume(64, num_blobs=8, device=dev)
+            outs[dev] = {"march": render_frame_gbuffer(
+                g, cam, cam_at(0.03), cfg_m.replace(width=64, height=48))}
+        oracle_card_vs_cpu("march 64x48", outs, [("march", 3, 0.5)])
+        del fr_m, fr_s
+
+    with phase("26 hemisphere-ray AO against the baked field"):
+        torus = analytic.torus_volume(256, device="cuda")
+        cam_t = CameraParams.create((0.0, 1.2, -0.25))
+        # the view of tests/test_ao_sweep.py; AO rays reach the same
+        # world distance (1024 steps of half a voxel at 256^3)
+        cfg_ray = RenderConfig(width=480, height=270, isovalue=0.5,
+                               step_voxels=0.5, ao_samples=32,
+                               ao_radius=0.2, ao_ray_steps=1024,
+                               ao_mode="ray", renderer="march")
+        t = time.time()
+        baked = attach_baked_ao(torus, 0.5, 0.2, num_dirs=48)
+        torch.cuda.synchronize()
+        log(f"baked the 256^3 torus's field (48 directions) in "
+            f"{time.time() - t:.2f} s")
+        ref, times["march ray AO"] = counted(
+            lambda: render_frame_gbuffer(torus, cam_t, cam_t, cfg_ray),
+            "march + ray AO", counters, {}, add)
+        cfg_vol = cfg_ray.replace(ao_mode="volume", renderer="sweep_pallas")
+        got, _ = counted(lambda: render_frame_gbuffer(baked, cam_t, cam_t,
+                                                      cfg_vol),
+                         "sweep_pallas + baked AO", counters, b1ao, add)
+        _, times["sweep ray AO"] = counted(
+            lambda: render_frame_gbuffer(
+                torus, cam_t, cam_t, cfg_ray.replace(renderer="sweep_pallas")),
+            "sweep_pallas + ray AO", counters, b1, add)
+        both = erode((ref[..., 3] > 0.5) & (got[..., 3] > 0.5), 2)
+        d = (ref[..., 10] - got[..., 10]).abs()[both]
+        occ = torch.stack([1 - ref[..., 10][both], 1 - got[..., 10][both]])
+        corr = float(torch.corrcoef(occ)[0, 1])
+        ok = (int(both.sum()) > 100 and float(d.mean()) < MAX_AO_MEAN_DIFF
+              and corr > MIN_AO_CORR
+              and float(got[..., 10][both].min()) < 0.92)
+        log(f"[ray AO vs baked] {int(both.sum())} interior pixels: mean "
+            f"|dAO| {float(d.mean()):.4f} (< {MAX_AO_MEAN_DIFF}), "
+            f"occlusion correlation {corr:.3f} (> {MIN_AO_CORR}); march + "
+            f"ray AO {times['march ray AO'] * 1e3:.1f} ms/frame, "
+            f"sweep_pallas + ray AO {times['sweep ray AO'] * 1e3:.1f} "
+            f"ms/frame: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("ray AO and the baked field disagree")
+        del torus, baked, ref, got
+
+    with phase("27 the clip generator at its reference settings"):
+        base = RenderConfig(renderer="sweep_pallas", step_voxels=0.5)
+        seq_cfg = SequenceConfig()
+        shapes = {"low": (10, 128, 128, 5), "high": (10, 512, 512, 6),
+                  "flow": (10, 128, 128, 2)}
+        clips = {}
+        for renderer, want in (("sweep_pallas",
+                                {"sweep_march": 10, "sweep_march_ao": 10}),
+                               ("sweep", {})):
+            seqs, sec = counted(lambda: generate_sequences(
+                [(grid, (0.5, 0.5))], 1, seq_cfg,
+                base_render_cfg=base.replace(renderer=renderer), seed=0),
+                f"clip {renderer}", counters, want, add)
+            times[f"clip {renderer}"] = sec
+            seq = clips[renderer] = seqs[0]
+            for k, shape in shapes.items():
+                if seq[k].shape != shape or not np.isfinite(seq[k]).all():
+                    raise RuntimeError(f"clip {k}: shape {seq[k].shape} "
+                                       f"(want {shape}) or not finite")
+            hi_mask = seq["high"][..., 0] > 0
+            lo_mask = seq["low"][..., 0] > 0
+            ao = seq["high"][..., 5][hi_mask]
+            log(f"[clip {renderer}] {sec:.2f} s a clip of 10 frames "
+                f"(512^2 with 256-sample AO, baked, and 128^2), bake "
+                f"included; mask share high {hi_mask.mean():.4f}, low "
+                f"{lo_mask.mean():.4f}; AO on hits min {ao.min():.4f}, "
+                f"mean {ao.mean():.4f}")
+            if not (lo_mask.any(axis=(1, 2)).all()
+                    and hi_mask.any(axis=(1, 2)).all()):
+                raise RuntimeError(f"clip {renderer}: an empty mask")
+        compare_clips("clip sweep_pallas vs scan", clips["sweep_pallas"],
+                      clips["sweep"], SCAN_TOL_LOW, SCAN_TOL_HIGH,
+                      MAX_SCAN_FLOW, MAX_SCAN_MASK_MISMATCH,
+                      seq_cfg.inpaint_iterations)
+        del clips, seqs, seq
+        small = SequenceConfig(num_frames=3, high_res=64)
+        outs, cams = {}, {}
+        for dev in ("cuda", "cpu"):
+            g = analytic.blobs_volume(64, num_blobs=8, device=dev)
+            outs[dev] = generate_sequences([(g, (0.5, 0.5))], 1, small,
+                                           base_render_cfg=base, seed=0)[0]
+            rng = np.random.RandomState(0)
+            rng.randint(1)
+            cams[dev] = [c.eye for c in random_camera_path(rng, small)]
+        if not all(bool((a == b).all()) for a, b in zip(cams["cuda"],
+                                                        cams["cpu"])):
+            raise RuntimeError("the clip's cameras differ")
+        every = {c: MAX_ORACLE_DIFF for c in range(1, 6)}
+        compare_clips("clip 64/16, 3 frames, card vs CPU", outs["cuda"],
+                      outs["cpu"], {c: every[c] for c in range(1, 5)},
+                      every, MAX_ORACLE_DIFF, MAX_ORACLE_MASK_MISMATCH,
+                      small.inpaint_iterations)
+
+    with phase("28 direct volume rendering and SSAO"):
+        cfg_v = RenderConfig(width=480, height=270, step_voxels=0.25)
+        render_volume_sweep(grid, cam, cfg_v)              # warm-up
+        sw, times["dvr sweep"] = counted(
+            lambda: render_volume_sweep(grid, cam, cfg_v), "dvr sweep",
+            counters, {}, add)
+        ma, times["dvr march"] = counted(
+            lambda: render_volume_march(grid, cam, cfg_v), "dvr march",
+            counters, {}, add)
+        d = (sw - ma).abs()[2:-2, 2:-2]
+        ok = (float(d.mean()) < MAX_DVR_MEAN and float(d.max()) < MAX_DVR_MAX
+              and bool(torch.isfinite(sw).all())
+              and float(sw[..., 3].max()) > 0.2)
+        log(f"[dvr sweep vs march] mean |diff| {float(d.mean()):.4f} (< "
+            f"{MAX_DVR_MEAN}), max {float(d.max()):.4f} (< {MAX_DVR_MAX}), "
+            f"alpha max {float(sw[..., 3].max()):.3f}; sweep "
+            f"{times['dvr sweep'] * 1e3:.1f} ms/frame, march "
+            f"{times['dvr march'] * 1e3:.1f} ms/frame: "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("DVR sweep and march disagree")
+        fr, _ = counted(lambda: render_frame_gbuffer(grid, cam, cam,
+                                                     frame_cfg),
+                        "main-path G-buffer", counters, b1, add)
+        times["ssao"] = time_cuda(lambda: apply_screen_ao(fr), 7)
+        out = apply_screen_ao(fr)
+        hit = fr[..., 3] > 0.5
+        ao = out[..., 10]
+        log(f"[ssao] {times['ssao']:.3f} ms/frame (median of 7) on the "
+            f"480x270 G-buffer; AO on hits min {float(ao[hit].min()):.4f}, "
+            f"mean {float(ao[hit].mean()):.4f}")
+        if not (bool((ao[~hit] == 1).all()) and bool((ao[hit] < 1).any())):
+            raise RuntimeError("SSAO: AO 1 on every hit or below 1 on the "
+                               "background")
 
 
 def main() -> int:
@@ -1917,8 +2260,10 @@ def main() -> int:
                                    f"non-finite output")
             del net, x, y
 
+    reference_renderers(grid, counters, add, frame_cfg)
+
     log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
-        f"18, 19, 21 and 22: {path_launches}")
+        f"18, 19, 21, 22 and 25-28: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),

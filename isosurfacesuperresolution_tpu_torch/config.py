@@ -15,15 +15,35 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
+# G-buffer channel layout: 12 channels per pixel
+CH_RGB = slice(0, 3)       # shaded color
+CH_MASK = 3                # 1 = hit, 0 = background
+CH_NORMAL = slice(4, 7)    # view-space normal
+CH_DEPTH = 7               # NDC depth of the hit
+CH_FLOW = slice(8, 10)     # screen-space flow w.r.t. the flow camera
+CH_AO = 10                 # ambient occlusion (1 = unoccluded)
+CH_SHADOW = 11             # unused, always 1
+NUM_RENDER_CHANNELS = 12
+
+# training tensors: low-res input [mask in [-1, 1], nx, ny, nz, depth],
+# high-res target [mask, nx, ny, nz, depth, ao]
+LOW_CHANNELS = 5
+HIGH_CHANNELS = 6
+
+
 @dataclass(frozen=True)
 class RenderConfig:
-    """Sweep-renderer and G-buffer shading settings."""
+    """Renderer and G-buffer shading settings."""
 
     width: int = 320
     height: int = 240
+    fov_degrees: float = 45.0          # vertical field of view
+    z_near: float = 0.1
+    z_far: float = 10.0
     # "sweep": the reference's slice scan in stock PyTorch ops (an oracle
     # path); "sweep_pallas": the march kernels (CUDA on the card, their
-    # plain versions on the CPU)
+    # plain versions on the CPU); "march": per-ray lattice marching
+    # (`render/raycast.render_gbuffer`), the reference-faithful oracle
     renderer: str = "sweep"
     sweep_oversample: float = 1.5      # intermediate grid resolution factor
     sweep_z_supersample: int = 2       # slice planes per voxel along the axis
@@ -37,14 +57,23 @@ class RenderConfig:
     sweep_tile: int = 0
     # storage/multiply type of the per-slice resample (accumulation f32)
     sweep_dtype: str = "float32"
+    # direct volume rendering (`render/volume_render.py`): transfer-function
+    # opacity multiplier per unit voxel of path length
+    volume_alpha_scale: float = 1.0
     isovalue: float = 0.36
-    # ambient occlusion: 0 disables it (ao channel = 1).  The port renders
-    # AO from a baked SH field (`render/ao_sweep.attach_baked_ao`) only;
-    # hemisphere-ray AO is not ported
+    step_voxels: float = 0.25          # march step in voxel units
+    binary_search_steps: int = 10      # hit refinement of the march
+    max_march_steps: int = 4096        # bound on fine steps of a ray
+    # ambient occlusion: 0 disables it (ao channel = 1).  "auto" samples a
+    # baked SH field when the grid carries one
+    # (`render/ao_sweep.attach_baked_ao`), hemisphere rays otherwise;
+    # "volume" | "ray" force one
     ao_samples: int = 0
-    ao_mode: str = "auto"              # auto | volume (baked field) | ray
+    ao_mode: str = "auto"
     ao_radius: float = 0.1             # world-space falloff radius
-    ao_bias: float = 1e-3              # ray-AO surface offset (unported)
+    ao_bias: float = 1e-3              # backtrack along the ray (acne)
+    ao_rotations: int = 4              # 4x4 grid of random rotations
+    ao_ray_steps: int = 128            # fine-step budget of each AO ray
     light_direction: Tuple[float, float, float] = (0.0, 0.0, 1.0)
     camera_light: bool = True
     ambient_color: Tuple[float, float, float] = (0.1, 0.1, 0.1)

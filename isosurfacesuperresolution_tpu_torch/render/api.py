@@ -1,7 +1,8 @@
 """Renderer entry point: one G-buffer for a concrete camera.
 
-Counterpart of the JAX package's `render/api.py`.  Only the sweep renderer
-is ported; "march" raises.
+Counterpart of the JAX package's `render/api.py`: ``renderer`` "sweep" or
+"sweep_pallas" renders with the shear-warp sweep (`render/sweep.py`),
+"march" with the per-ray march oracle (`render/raycast.render_gbuffer`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from isosurfacesuperresolution_tpu_torch.config import RenderConfig
 from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
 from isosurfacesuperresolution_tpu_torch.render.params import RenderParams
+from isosurfacesuperresolution_tpu_torch.render.raycast import render_gbuffer
 from isosurfacesuperresolution_tpu_torch.render.sweep import (
     render_gbuffer_sweep)
 from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
@@ -41,12 +43,14 @@ def adaptive_sweep_cfg(cam: CameraParams, cfg: RenderConfig
 def render_frame_gbuffer(grid: BrickGrid, cam: CameraParams,
                          cam_flow: CameraParams, cfg: RenderConfig,
                          rp: "RenderParams | None" = None) -> torch.Tensor:
-    """Render one (H, W, 12) G-buffer with the backend ``cfg.renderer``,
-    view-adaptively oversampled as the JAX package does for a concrete
-    camera.  (The fused frame calls `render_gbuffer_sweep` directly: in
-    the JAX package its camera is traced, so the adaptive factor never
-    applies there.)"""
+    """Render one (H, W, 12) G-buffer with the backend ``cfg.renderer``;
+    the sweep view-adaptively oversampled as the JAX package does for a
+    concrete camera.  (The fused frame calls `render_gbuffer_sweep`
+    directly: in the JAX package its camera is traced, so the adaptive
+    factor never applies there.)"""
     if cfg.renderer in ("sweep", "sweep_pallas"):
         return render_gbuffer_sweep(grid, cam, cam_flow,
                                     adaptive_sweep_cfg(cam, cfg), rp)
-    raise ValueError(f"unknown or unported renderer {cfg.renderer!r}")
+    if cfg.renderer == "march":
+        return render_gbuffer(grid, cam, cam_flow, cfg, rp)
+    raise ValueError(f"unknown renderer {cfg.renderer!r}")

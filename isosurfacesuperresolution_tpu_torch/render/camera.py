@@ -1,8 +1,10 @@
-"""Cameras: view/projection matrices and projection.
+"""Cameras: view/projection matrices, projection and pixel rays.
 
 Counterpart of the JAX package's `render/camera.py`, with the same
 conventions: right-handed world, the view matrix maps world -> camera with
-the camera looking down -z, GL-style projection with NDC depth in [-1, 1].
+the camera looking down -z, GL-style projection with NDC depth in [-1, 1];
+pixel (x, y) has x growing right and y growing down (row 0 is the top of
+the image), and its ray passes through ((x + 0.5) / W, (y + 0.5) / H).
 
 A camera is host state: its vectors and matrices are float32 CPU tensors,
 so the per-frame geometry derived from it costs no device round trip.
@@ -12,8 +14,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -93,3 +96,44 @@ class CameraParams:
     def normal_matrix(self) -> torch.Tensor:
         """3x3 rotation mapping world normals to view space."""
         return self.view_matrix()[:3, :3]
+
+    def pixel_rays(self, width: int, height: int, device=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ray origin (the host eye, (3,)) and the normalized world
+        direction of each pixel's ray, (H, W, 3) on ``device`` (the CPU by
+        default); the top row looks up."""
+        rot = self.view_matrix()[:3, :3].tolist()     # rows: right, up, back
+        tan_half = math.tan(math.radians(self.fov_y_degrees) / 2.0)
+        aspect = width / height
+        x = (torch.arange(width, dtype=torch.float32, device=device)
+             + 0.5) / width
+        y = (torch.arange(height, dtype=torch.float32, device=device)
+             + 0.5) / height
+        dx = ((2.0 * x - 1.0) * (tan_half * aspect))[None, :].expand(
+            height, width)
+        dy = ((1.0 - 2.0 * y) * tan_half)[:, None].expand(height, width)
+        # (dx, dy, -1) rotated from view to world space
+        d = torch.stack([dx * rot[0][j] + dy * rot[1][j] - rot[2][j]
+                         for j in range(3)], -1)
+        return self.eye, d / torch.clamp(norm3(d)[..., None], min=1e-12)
+
+
+def norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean length over the last axis of size 3, summed in order."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
+
+
+def random_sphere_camera(rng: np.random.RandomState,
+                         distance_range: Tuple[float, float] = (1.2, 2.0),
+                         fov_y_degrees: float = 45.0) -> CameraParams:
+    """A camera at a uniformly random direction and distance from the
+    origin, looking at it (the data generator's and the all-angle PSNR
+    harness's draw)."""
+    v = rng.normal(size=3)
+    v /= np.linalg.norm(v)
+    d = rng.uniform(*distance_range)
+    up = np.array([0.0, 1.0, 0.0])
+    if abs(np.dot(v, up)) > 0.95:
+        up = np.array([1.0, 0.0, 0.0])
+    return CameraParams.create(v * d, (0, 0, 0), up, fov_y_degrees)

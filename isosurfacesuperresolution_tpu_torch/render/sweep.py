@@ -10,7 +10,10 @@ chain rule through the shear turns them into volume normals, and one
 homography maps the intermediate G-buffer to the image with a two-pass
 separable resample.  With a baked SH occlusion field
 (`render/ao_sweep.attach_baked_ao`) the field is captured at the hit
-plane and the AO channel is ``ao_from_sh(sh, normal)``.
+plane and the AO channel is ``ao_from_sh(sh, normal)``; without one (or
+with ``ao_mode="ray"``) AO comes from hemisphere rays marched from the
+hits of the intermediate grid (`render/raycast.compute_ao`), an oracle
+path whatever the march.
 
 Four marches, chosen as in the JAX package:
 
@@ -49,9 +52,11 @@ from isosurfacesuperresolution_tpu_torch.config import RenderConfig
 from isosurfacesuperresolution_tpu_torch.ops.separable_warp import (
     homography_warp)
 from isosurfacesuperresolution_tpu_torch.render.ao_sweep import ao_from_sh
-from isosurfacesuperresolution_tpu_torch.render.camera import CameraParams
+from isosurfacesuperresolution_tpu_torch.render.camera import (
+    CameraParams, norm3)
 from isosurfacesuperresolution_tpu_torch.render.params import RenderParams
-from isosurfacesuperresolution_tpu_torch.render.raycast import shade_hits
+from isosurfacesuperresolution_tpu_torch.render.raycast import (
+    compute_ao, shade_hits)
 from isosurfacesuperresolution_tpu_torch.render.sweep_march import (
     _round, march)
 from isosurfacesuperresolution_tpu_torch.render.sweep_tiled import (
@@ -501,6 +506,21 @@ def _sweep(grid: AnyGrid, plan: SweepPlan, cam: CameraParams,
     if use_ao_field:
         # baked SH-L1 occlusion captured at the hit plane
         ao = ao_from_sh(sh.permute(1, 2, 0), normal_w).reshape(-1)
+    elif cfg.ao_samples > 0:
+        # hemisphere rays from the hits (`raycast.compute_ao`), the
+        # rotation noise indexed by the intermediate grid's (t, s)
+        sn, tn = torch.meshgrid(torch.arange(plan.Sn, device=dev),
+                                torch.arange(plan.Tn, device=dev),
+                                indexing="ij")
+        pix = torch.stack([tn.reshape(-1), sn.reshape(-1)], -1)
+        eye = cam.eye.tolist()
+        flat_world = hit_world.reshape(-1, 3)
+        dirs = torch.stack([flat_world[:, i] - eye[i] for i in range(3)],
+                           -1)
+        dirs = dirs / torch.clamp(norm3(dirs)[:, None], min=1e-12)
+        ao = compute_ao(grid, hit_vox.reshape(-1, 3), normal_w.reshape(-1, 3),
+                        dirs, flat_hit, pix, cfg, float(grid.voxel_size[0]),
+                        isovalue=rp.isovalue)
     else:
         ao = torch.ones_like(flat_hit, dtype=_F32)
     inter = shade_hits(hit_world.reshape(-1, 3), normal_w.reshape(-1, 3),
@@ -573,11 +593,6 @@ def render_gbuffer_sweep(grid: AnyGrid, cam: CameraParams,
                          "ao_samples=0, bake AO before packing "
                          "(attach_baked_ao + from_brick_grid), or densify "
                          "with grid.to_brick_grid()")
-    if cfg.ao_samples > 0 and not use_ao_field:
-        raise NotImplementedError(
-            "hemisphere-ray AO is not ported (ROADMAP.md, queue A): bake "
-            "the field with render.ao_sweep.attach_baked_ao, or set "
-            "ao_samples=0")
     if rp is None:
         rp = RenderParams.from_config(cfg)
     return _sweep(grid, plan_sweep(grid, cam, cfg, rp), cam, cam_flow, cfg,

@@ -20,8 +20,10 @@ Counterpart of the JAX package's `volume/grid.py`:
   first use (the tiled renderer's tile tables); not an init argument, so
   `dataclasses.replace` starts a new grid with none.
 
-`GridTransform` holds what `BrickGrid` shares with the packed
-`volume/packed.SparseBrickGrid`: the world transform and the dequant.
+The march oracle reads a grid through `BrickGrid.sample_trilinear`,
+`sample_nearest` and `brick_max_at`.  `GridTransform` holds what
+`BrickGrid` shares with the packed `volume/packed.SparseBrickGrid`: the
+world transform and the dequant.
 """
 
 from __future__ import annotations
@@ -102,14 +104,25 @@ class BrickGrid(GridTransform):
 
     def brick_max_at(self, vox: torch.Tensor) -> torch.Tensor:
         """Max value of the brick holding voxel coordinate (..., 3); -inf
-        outside the volume, so empty space outside is always skippable."""
-        bmax = self.brick_max
-        bshape = torch.tensor(bmax.shape, device=bmax.device)
-        idx = torch.floor(vox.to(bmax.device) / self.brick_size).long()
-        inside = ((idx >= 0) & (idx < bshape)).all(-1)
-        idx = torch.minimum(torch.clamp(idx, min=0), bshape - 1)
-        v = bmax[idx[..., 0], idx[..., 1], idx[..., 2]]
+        outside the volume, so empty space outside is always skippable.
+        The pyramid's shape enters as host ints: a call copies nothing
+        from the host (the march calls it at every step)."""
+        idx = torch.floor(vox.to(self.brick_max.device)
+                          / self.brick_size).long()
+        v, inside = _take_inside(self.brick_max, idx)
         return torch.where(inside, v, -torch.inf)
+
+    def sample_trilinear(self, vox: torch.Tensor) -> torch.Tensor:
+        """Trilinear sample of the physical values at voxel coordinates
+        (..., 3); 0 outside the volume (`sample_trilinear`)."""
+        return sample_trilinear(self.values, vox, self.value_scale,
+                                self.value_offset)
+
+    def sample_nearest(self, vox: torch.Tensor) -> torch.Tensor:
+        """The physical value of the voxel holding coordinate (..., 3); 0
+        outside the volume."""
+        v, inside = _take_inside(self.values, torch.floor(vox).long())
+        return torch.where(inside, self.dequant(v), 0.0)
 
     @classmethod
     def from_dense(cls, values: np.ndarray,
@@ -170,6 +183,58 @@ class BrickGrid(GridTransform):
                    brick_max=torch.from_numpy(bmax).to(dev),
                    brick_size=brick_size, value_scale=scale,
                    value_offset=offset)
+
+
+def _take_inside(table: torch.Tensor, idx: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``table`` (X, Y, Z) at integer indices (..., 3) clamped into it,
+    and whether each index lies inside."""
+    inside = (idx >= 0).all(-1)
+    for a in range(3):
+        inside = inside & (idx[..., a] < table.shape[a])
+    return table[tuple(idx[..., a].clamp(0, table.shape[a] - 1)
+                       for a in range(3))], inside
+
+
+def sample_trilinear(values: torch.Tensor, vox: torch.Tensor,
+                     scale: float = 1.0, offset: float = 0.0
+                     ) -> torch.Tensor:
+    """Trilinear interpolation of a dense (X, Y, Z) volume at continuous
+    voxel coordinates ``vox`` (..., 3), the voxel stored at index i
+    centered at i + 0.5.  Each of the 8 corners is dequantized (physical =
+    stored * ``scale`` + ``offset``) before the blend, and one that falls
+    outside the volume contributes the physical value 0 (empty space).
+    The blend runs along x, then y, then z, as the JAX package's."""
+    X, Y, Z = values.shape
+    flat = values.reshape(-1)
+    p = vox - 0.5
+    p0 = torch.floor(p)
+    frac = p - p0
+    i0 = p0.long()
+    ix, iy, iz = i0[..., 0], i0[..., 1], i0[..., 2]
+    ins = [[(i + d >= 0) & (i + d < n) for d in (0, 1)]
+           for i, n in ((ix, X), (iy, Y), (iz, Z))]
+    cl = [[(i + d).clamp(0, n - 1) for d in (0, 1)]
+          for i, n in ((ix, X), (iy, Y), (iz, Z))]
+
+    def corner(dx, dy, dz):
+        v = flat[(cl[0][dx] * Y + cl[1][dy]) * Z + cl[2][dz]].to(
+            torch.float32)
+        if scale != 1.0:
+            v = v * scale
+        if offset != 0.0:
+            v = v + offset
+        return torch.where(ins[0][dx] & ins[1][dy] & ins[2][dz], v, 0.0)
+
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+    gx, gy, gz = 1 - fx, 1 - fy, 1 - fz
+    c00 = corner(0, 0, 0) * gx + corner(1, 0, 0) * fx
+    c10 = corner(0, 1, 0) * gx + corner(1, 1, 0) * fx
+    c01 = corner(0, 0, 1) * gx + corner(1, 0, 1) * fx
+    c11 = corner(0, 1, 1) * gx + corner(1, 1, 1) * fx
+    c0 = c00 * gy + c10 * fy
+    c1 = c01 * gy + c11 * fy
+    return c0 * gz + c1 * fz
 
 
 def compute_brick_minmax(values: np.ndarray, brick_size: int

@@ -252,12 +252,27 @@ def test_ao_mode_rules():
     cfg = RenderConfig(width=16, height=12, isovalue=0.5, ao_samples=8)
     with pytest.raises(ValueError, match="needs a baked occlusion field"):
         render_gbuffer_sweep(grid, cam, cam, cfg.replace(ao_mode="volume"))
-    for mode in ("auto", "ray"):              # hemisphere rays: not ported
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            render_gbuffer_sweep(grid, cam, cam, cfg.replace(ao_mode=mode))
+    # no field, or ao_mode "ray": hemisphere rays, as in JAX (the raycast
+    # tests' bounds: 1e-4 off the AO channel, an AO ray flip moves AO by
+    # 1/samples); "ray" ignores a baked field
+    j_sphere = j_analytic.sphere_volume(16)
+    j_cam = JCameraParams.create((0.3, 0.9, -1.5))
     baked = P.attach_baked_ao(grid, 0.5, 0.2, num_dirs=2, num_steps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        render_gbuffer_sweep(baked, cam, cam, cfg.replace(ao_mode="ray"))
+    ray = render_gbuffer_sweep(grid, cam, cam, cfg.replace(ao_mode="ray"))
+    ref = np.asarray(j_render(j_sphere, j_cam, j_cam, JRenderConfig(
+        width=16, height=12, isovalue=0.5, ao_samples=8, ao_mode="ray")))
+    for g, mode in ((grid, "auto"), (grid, "ray"), (baked, "ray")):
+        got = render_gbuffer_sweep(g, cam, cam,
+                                   cfg.replace(ao_mode=mode)).numpy()
+        # the same branch in JAX whatever the mode here
+        np.testing.assert_array_equal(got, ray.numpy())
+        np.testing.assert_array_equal(got[..., 3], ref[..., 3])
+        hit = got[..., 3] > 0.5
+        d = np.abs(got - ref)[hit]
+        assert d[:, [c for c in range(12) if c != 10]].max() < 1e-4
+        assert d[:, 10].max() < 1.0 / 8 + 1e-4
+        assert (d[:, 10] > 1e-4).mean() <= 0.02
+        assert (got[..., 10][hit] < 1).any()
     # a coarse field renders, as in JAX (flat path: upsampled first; the
     # scan and the kernel's plain version)
     coarse = P.attach_baked_ao(grid, 0.5, 0.2, num_dirs=2, num_steps=2,

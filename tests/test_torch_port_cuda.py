@@ -683,3 +683,79 @@ def test_exact_warp_and_bicubic_card_match_cpu():
         got = fn(img.cuda(), flow.cuda())
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    atol=1e-6, rtol=0)
+
+
+def _oracle_frames(renderer, device, **kw):
+    from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+    from isosurfacesuperresolution_tpu_torch.render.api import (
+        render_frame_gbuffer)
+    from isosurfacesuperresolution_tpu_torch.render.camera import (
+        CameraParams)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+    grid = analytic.torus_volume(32, device=device)
+    cfg = RenderConfig(width=32, height=24, isovalue=0.5, renderer=renderer,
+                       **kw)
+    out = []
+    for eye in ((0.0, 1.2, -0.25), (1.6, 0.5, -0.4)):
+        cam = CameraParams.create(eye)
+        out.append(render_frame_gbuffer(grid, cam, cam, cfg).cpu().numpy())
+    return out
+
+
+def _close_frames(got, want, samples):
+    """Card against CPU: the same float32 ops in the same order; a
+    grazing ray may flip (1% of the pixels), and an AO ray's flip moves
+    AO by 1/samples."""
+    for g, w in zip(got, want):
+        assert (g[..., 3] != w[..., 3]).mean() <= 0.01
+        both = (g[..., 3] > 0.5) & (w[..., 3] > 0.5)
+        d = np.abs(g - w)[both]
+        assert d[:, [c for c in range(12) if c != 10]].max() < 1e-4
+        assert d[:, 10].max() < 1.0 / max(samples, 1) + 1e-4
+        assert (d[:, 10] > 1e-4).mean() <= 0.02
+        if samples:
+            assert (w[..., 10][both] < 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples", [0, 8])
+def test_march_oracle_card_matches_cpu(samples):
+    _need_card()
+    kw = dict(ao_samples=samples, ao_radius=0.2, step_voxels=0.5)
+    _close_frames(_oracle_frames("march", "cuda", **kw),
+                  _oracle_frames("march", "cpu", **kw), samples)
+
+
+@pytest.mark.cuda
+def test_sweep_ray_ao_on_b1_card_matches_cpu():
+    """``ao_mode="ray"`` on the flat march: B1 on the card, its plain
+    version on the CPU, then the hemisphere rays on each."""
+    _need_card()
+    kw = dict(ao_samples=8, ao_radius=0.2, ao_mode="ray")
+    before = sweep_march.march.launches
+    got = _oracle_frames("sweep_pallas", "cuda", **kw)
+    assert sweep_march.march.launches == before + 2
+    _close_frames(got, _oracle_frames("sweep_pallas", "cpu", **kw), 8)
+
+
+@pytest.mark.cuda
+def test_march_copies_nothing_from_the_host_per_step():
+    """A march of a few hundred steps makes one host-to-device copy (the
+    shared origin), whatever its length."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from isosurfacesuperresolution_tpu_torch.render.raycast import (
+        march_rays)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+    grid = analytic.torus_volume(64, device="cuda")
+    rng = np.random.RandomState(0)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    origin = torch.tensor([32.0, 70.0, 20.0])
+    dirs = d.cuda()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hit, _ = march_rays(grid, origin, dirs, 0.5, 0.25, 4096)
+        torch.cuda.synchronize()
+    h2d = [e for e in prof.events() if "HtoD" in e.name]
+    assert hit.any() and len(h2d) <= 1, [e.name for e in h2d]

@@ -48,7 +48,9 @@ NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
                "render.ao_sweep", "render.sweep_tiled", "volume.grid",
                "volume.packed", "ops.pallas_conv", "ops.packed_conv",
                "utils.spectral_norm", "profile_convs", "ops.sampling",
-               "infer.torch_import", "infer.torch_export")
+               "infer.torch_import", "infer.torch_export",
+               "render.raycast", "render.volume_render", "render.ssao",
+               "data.generation", "utils.jax_prng")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
