@@ -129,9 +129,29 @@ seconds; any failure ends the run with a non-zero exit code:
    card vs CPU on a 3-frame 64^2 clip with the same seed;
 28. DVR: the sweep against the per-ray march at 480x270 under the bound
    of tests/test_volume_render.py, ms/frame each; SSAO on a main-path
-   G-buffer, ms/frame.
+   G-buffer, ms/frame;
+29. training at full width on kernel-made clips: 4 clips of
+   `SequenceConfig()` from the blobs and the 256^3 torus on B1 and B1-ao
+   (40 launches each), stacked in `DeviceVideoDataset` on the card, crops
+   from `VideoDataset.collect_samples`, then 20 `make_train_step` steps
+   of a fresh 10x64 EnhanceNet (run00017's architecture) at the
+   `TrainConfig()` defaults (batch 16, crop 32 -> 128, 10 frames, Adam,
+   clip 1.0) and the default loss DSL: ms a step (CUDA events over steps
+   3-20, whose only host sync is the spike guard's loss read), peak
+   memory, every step's loss (finite), one `make_eval_step` PSNR;
+30. adversarial and perceptual steps at full width: the EnhanceNetLarge
+   critic at 128 and the seeded VGG (``adv:all:0.3,perceptual:color:0.1``
+   added), 5 discriminator/generator rounds (ms a round), then one round
+   with wgan-gp and spectrally normalized critics: losses finite, both
+   networks' parameters changed;
+31. card vs CPU on three Adam steps of a small net (2 blocks x 16
+   features, batch 2, crop 16, 3 frames) from the same seeded state, then
+   `apps.main_video_unshaded.main` on the card (2 epochs on
+   analytic:sphere, 2 small clips, in a temporary run dir under
+   ``build/``), ``--restore`` for a third, and `LoadedModel.from_run_dir`
+   on the run dir and at ``epoch=3``, each giving a finite frame.
 
-In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-28 the launch
+In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-31 the launch
 counts are zeroed just before each run and read just after it; in phases
 4-23 frames 3 onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
 of kernel numbers, the card line, and last the device line.  Float32
@@ -145,6 +165,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -239,6 +260,15 @@ MAX_SCAN_FLOW = 1e-3
 # sweep vs march DVR (tests/test_volume_render.py:46), 2-px border excluded
 MAX_DVR_MEAN = 0.015
 MAX_DVR_MAX = 0.15
+# training card vs CPU (phase 31, as tests/test_torch_port_train.py holds
+# the CPU path against JAX): losses of three Adam steps at rel 1e-4; the
+# parameters within 1e-2 x lr, but for a few elements of a leaf (at most
+# 3%, each within 0.1 x lr) that Adam's normalized step moves on a
+# gradient known only to float32 rounding
+MAX_TRAIN_LOSS_REL = 1e-4
+MAX_TRAIN_PARAM = 1e-2
+MAX_TRAIN_FAR_SHARE = 0.03
+MAX_TRAIN_FAR = 0.1
 ZOO_SMALL = (("EnhanceNet use_bn", dict(use_bn=True)),
              ("EnhanceNet use_sn", dict(use_sn=True)),
              ("EnhanceNet pixelShuffle", dict(upsample="pixelShuffle")),
@@ -1069,6 +1099,299 @@ def reference_renderers(grid, counters: dict, add, frame_cfg) -> None:
         if not (bool((ao[~hit] == 1).all()) and bool((ao[hit] < 1).any())):
             raise RuntimeError("SSAO: AO 1 on every hit or below 1 on the "
                                "background")
+
+
+def train_steps(step, state, batches, n: int, tag: str, counters: dict,
+                add) -> list:
+    """``n`` train steps with the launch counts zeroed just before and read
+    just after (the training path launches no kernel); steps 3 onwards
+    may make one host sync, the spike guard's loss read.  Logs ms a step
+    (CUDA events over steps 3-n) and peak memory; returns the losses."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for holder, attr in counters.values():
+        setattr(holder, attr, 0)
+    losses = []
+
+    def accept(loss) -> bool:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        losses.append(float(loss))
+        torch.cuda.set_sync_debug_mode(mode)
+        return bool(math.isfinite(losses[-1]))
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        events[0].record()
+        for i in range(n):
+            if i == 2:
+                torch.cuda.set_sync_debug_mode("warn")
+            step(state, *next(batches), accept=accept)
+            events[i + 1].record()
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = {k: getattr(h, a) for k, (h, a) in counters.items()}
+    expect(launches, {}, tag)
+    add(launches)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    ms = events[2].elapsed_time(events[n]) / (n - 2)
+    FRAME_MS[tag] = ms
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] {ms:.2f} ms a step over steps 3-{n} (first "
+        f"{events[0].elapsed_time(events[1]):.1f} ms), peak memory "
+        f"allocated {peak:.2f} GiB, host syncs in steps 3-{n} besides the "
+        f"loss reads: {len(syncs)}; losses "
+        + " ".join(f"{v:.5g}" for v in losses))
+    if syncs:
+        raise RuntimeError(f"[{tag}] a step waited for the card: "
+                           f"{syncs[0]}")
+    if len(losses) != n or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"[{tag}] a loss is not finite: {losses}")
+    return losses
+
+
+def training(model_cfg, grid, counters: dict, add) -> None:
+    """Phases 29-31: the trainer at full width on clips the kernels made,
+    adversarial and perceptual rounds, card vs CPU and the entry point."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from isosurfacesuperresolution_tpu_torch.apps import main_video_unshaded
+    from isosurfacesuperresolution_tpu_torch.config import (
+        Config, LossConfig, ModelConfig, RenderConfig, TrainConfig)
+    from isosurfacesuperresolution_tpu_torch.data.dataset import (
+        DatasetFromSamples, VideoDataset)
+    from isosurfacesuperresolution_tpu_torch.data.generation import (
+        SequenceConfig, generate_sequences)
+    from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import (
+        LoadedModel)
+    from isosurfacesuperresolution_tpu_torch.losses.lossnet_unshaded import (
+        LossNetUnshaded)
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network)
+    from isosurfacesuperresolution_tpu_torch.train import trainer as TR
+    from isosurfacesuperresolution_tpu_torch.train.device_data import (
+        DeviceVideoDataset)
+    from isosurfacesuperresolution_tpu_torch.utils import jax_prng
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+
+    def fresh(cfg, device, seed, sn=False):
+        gen = torch.Generator().manual_seed(seed)
+        model = create_network(cfg.model, generator=gen).to(device)
+        crit = LossNetUnshaded(cfg.loss, high_res=cfg.train.crop_size
+                               * cfg.model.upscale_factor,
+                               use_spectral_norm=sn)
+        spec = TR.make_optimizer(cfg)
+        state = TR.create_train_state(
+            cfg, model, crit, spec, gen,
+            discr_optimizer=spec if crit.has_discriminator else None)
+        return state, crit
+
+    def batches(dd, samples, t, seed):
+        rng = np.random.RandomState(seed)
+        while True:
+            yield from dd.batches(samples, t.batch_size, t.crop_size, rng=rng)
+
+    with phase("29 training at full width on kernel-made clips"):
+        torus = analytic.torus_volume(256, device="cuda")
+        base = RenderConfig(renderer="sweep_pallas", step_voxels=0.5)
+        seqs, sec = counted(lambda: generate_sequences(
+            [(grid, (0.5, 0.5)), (torus, (0.5, 0.5))], 4, SequenceConfig(),
+            base_render_cfg=base, seed=29), "4 training clips", counters,
+            {"sweep_march": 40, "sweep_march_ao": 40}, add)
+        del torus
+        cfg = Config(model=model_cfg, loss=LossConfig(), train=TrainConfig())
+        t = cfg.train
+        dd = DeviceVideoDataset(seqs, upscale_factor=4, device="cuda")
+        dataset = VideoDataset(seqs)
+        samples = dataset.collect_samples(t.samples, t.crop_size,
+                                          t.min_fill_rate,
+                                          np.random.RandomState(t.seed))
+        train_set = DatasetFromSamples(dataset, samples, t.crop_size, False,
+                                       t.test_fraction)
+        test_set = DatasetFromSamples(dataset, samples, t.crop_size, True,
+                                      t.test_fraction)
+        log(f"[training data] 4 clips in {sec:.2f} s; "
+            f"{dd.nbytes() / 2 ** 30:.3f} GiB on the card; "
+            f"{len(train_set)} train and {len(test_set)} test crops of "
+            f"{t.crop_size} (-> {t.crop_size * 4})")
+        state, crit = fresh(cfg, "cuda", t.seed)
+        m = cfg.model
+        n_par = sum(p.numel() for p in state.model.parameters())
+        log(f"EnhanceNet {m.num_residual_blocks} x {m.num_features}, fresh "
+            f"(seed {t.seed}), {n_par} parameters; batch {t.batch_size}, "
+            f"{t.num_frames} frames, {t.optimizer}, clip {t.grad_clip}, "
+            f"losses {cfg.loss.losses}")
+        step = TR.make_train_step(cfg, state.model, crit)
+        it = batches(dd, train_set.samples, t, 0)
+        losses = train_steps(step, state, it, 20, "train step", counters, add)
+        if state.step != 20:
+            raise RuntimeError(f"{state.step} steps taken of 20")
+        low, flow, high = next(dd.batches(test_set.samples, t.batch_size,
+                                          t.crop_size, shuffle=False))
+        test_loss, psnr = TR.make_eval_step(cfg, state.model, crit)(
+            low, flow, high)
+        log(f"[train step] eval on a test batch: loss a frame "
+            f"{float(test_loss):.5g}, PSNR {float(psnr):.3f} dB (first train "
+            f"loss {losses[0]:.5g}, last {losses[-1]:.5g})")
+        if not math.isfinite(float(psnr)):
+            raise RuntimeError("eval PSNR not finite")
+        del state, crit, step, it
+
+    with phase("30 adversarial and perceptual steps at full width"):
+        for tag, loss_kw, sn, rounds in (
+                ("adv bce + perceptual",
+                 dict(losses=LossConfig().losses
+                      + ",adv:all:0.3,perceptual:color:0.1"), False, 5),
+                ("adv wgan-gp + SN",
+                 dict(losses=LossConfig().losses + ",adv:all:0.3",
+                      gan_type="wgan-gp"), True, 1)):
+            acfg = cfg.replace(loss=LossConfig(**loss_kw))
+            state, crit = fresh(acfg, "cuda", t.seed, sn)
+            d_step, g_step = TR.make_adv_train_steps(acfg, state.model, crit)
+            before = [{k: v.clone() for k, v in mod.state_dict().items()}
+                      for mod in (state.model, crit.discriminators)]
+            it = batches(dd, train_set.samples, t, 1)
+            rng = np.random.RandomState(30)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for holder, attr in counters.values():
+                setattr(holder, attr, 0)
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(rounds + 1)]
+            vals = []
+            ev[0].record()
+            for r in range(rounds):
+                low, flow, high = next(it)
+                _, dl, gs, ps = d_step(state, low, flow, high,
+                                       jax_prng.prng_key(rng.randint(1 << 31)))
+                _, gl = g_step(state, low, flow, high)
+                ev[r + 1].record()
+                vals.append((dl, gs, ps, gl))
+            torch.cuda.synchronize()
+            launches = {k: getattr(h, a) for k, (h, a) in counters.items()}
+            expect(launches, {}, tag)
+            add(launches)
+            vals = [[float(v) for v in row] for row in vals]
+            ms = (ev[1].elapsed_time(ev[rounds]) / (rounds - 1) if rounds > 1
+                  else ev[0].elapsed_time(ev[1]))
+            changed = [any(not torch.equal(v, b[k]) for k, v in
+                           mod.state_dict().items())
+                       for mod, b in zip((state.model, crit.discriminators),
+                                         before)]
+            ok = all(math.isfinite(v) for row in vals for v in row) and all(
+                changed)
+            log(f"[{tag}] {ms:.2f} ms a round ("
+                + ("rounds 2-5" if rounds > 1 else "one round, first use")
+                + f"), peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                f"(discr loss, real, fake, gen loss) "
+                + " ".join("(" + ", ".join(f"{v:.4g}" for v in row) + ")"
+                           for row in vals)
+                + f"; VGG pretrained: {crit.vgg_pretrained}; generator and "
+                f"critic changed: {changed}: {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"{tag}: non-finite losses or a network "
+                                   f"that did not move")
+            del state, crit, d_step, g_step, it
+        del dd, seqs
+
+    with phase("31 card vs CPU, and the entry point"):
+        scfg = Config(model=ModelConfig(num_residual_blocks=2,
+                                        num_features=16),
+                      loss=LossConfig(padding=4),
+                      train=TrainConfig(batch_size=2, crop_size=16,
+                                        num_frames=3, learning_rate=1e-3))
+        rng = np.random.RandomState(31)
+        clips = []
+        for _ in range(3):
+            low = rng.rand(2, 3, 16, 16, 5).astype(np.float32)
+            low[..., 0] = np.sign(low[..., 0] - 0.3)
+            flow = (rng.rand(2, 3, 16, 16, 2).astype(np.float32) - 0.5) * 0.1
+            high = np.repeat(np.repeat(np.concatenate(
+                [low, rng.rand(2, 3, 16, 16, 1).astype(np.float32)], -1),
+                4, 2), 4, 3)
+            clips.append([torch.from_numpy(a) for a in (low, flow, high)])
+        def three_steps(dev):
+            state, crit = fresh(scfg, dev, 31)
+            step = TR.make_train_step(scfg, state.model, crit)
+            ls = [float(step(state, *[a.to(dev) for a in c])[1])
+                  for c in clips]
+            return ls, {k: v.cpu() for k, v in
+                        state.model.state_dict().items()}
+
+        card, cpu = three_steps("cuda"), three_steps("cpu")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+        lr = scfg.train.learning_rate
+        worst, worst_share = 0.0, 0.0
+        for k, v in cpu[1].items():
+            d = (card[1][k] - v).abs()
+            worst = max(worst, float(d.max()) / lr)
+            worst_share = max(worst_share, float(
+                (d > MAX_TRAIN_PARAM * lr).float().mean()))
+        ok = (rel <= MAX_TRAIN_LOSS_REL and worst < MAX_TRAIN_FAR
+              and worst_share <= MAX_TRAIN_FAR_SHARE)
+        log(f"[train card vs CPU] 3 Adam steps, 2 x 16 net, crop 16, 3 "
+            f"frames: losses {card[0]} vs {cpu[0]} (max rel "
+            f"{rel:.3g}, bound {MAX_TRAIN_LOSS_REL}); parameters: largest "
+            f"|diff| {worst:.3g} x lr (bound {MAX_TRAIN_FAR}), largest "
+            f"share of a leaf beyond {MAX_TRAIN_PARAM} x lr {worst_share:.4f}"
+            f" (bound {MAX_TRAIN_FAR_SHARE}): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("training: card and CPU disagree")
+
+        work = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+        try:
+            argv = ["--dataset", "analytic:sphere", "--numberOfImages", "2",
+                    "--numFrames", "3", "--cropSize", "16", "--samples",
+                    "32", "--batchSize", "4", "--numResidualLayers", "2",
+                    "--numFeatures", "16", "--aoSamples", "16",
+                    "--lossBorderPadding", "4", "--imageEvery", "1",
+                    "--runDir", str(work / "runs"), "--device", "cuda",
+                    "--cacheDataset", str(work / "clips")]
+            t0 = time.time()
+            run_a, _ = counted(lambda: main_video_unshaded.main(
+                argv + ["--epochs", "2"]), "main_video_unshaded 2 epochs",
+                counters, {}, add)
+            run_b, _ = counted(lambda: main_video_unshaded.main(
+                argv + ["--epochs", "3", "--restore", run_a]),
+                "main_video_unshaded --restore", counters, {}, add)
+            rows = [json.loads(line) for line in
+                    open(Path(run_b) / "scalars.jsonl")]
+            ckpts = sorted(os.listdir(Path(run_b) / "checkpoints"))
+            x = torch.rand((1, 16, 16, 5), generator=torch.Generator()
+                           .manual_seed(31)).cuda() * 2 - 1
+            flow0 = torch.zeros((1, 16, 16, 2), device="cuda")
+            outs = {}
+            for tag, kw in (("params.npz", {}), ("epoch 3", {"epoch": 3})):
+                lm = LoadedModel.from_run_dir(run_b, device="cuda", **kw)
+                y = lm.inference(x, None, flow0)
+                y = lm.inference(x, y, flow0)
+                outs[tag] = y
+            ok = (ckpts == ["epoch_3.pt"] and {r["step"] for r in rows} == {3}
+                  and all(math.isfinite(r["value"]) for r in rows)
+                  and all(bool(torch.isfinite(y).all())
+                          and tuple(y.shape) == (1, 64, 64, 6)
+                          for y in outs.values())
+                  and bool(torch.equal(outs["params.npz"], outs["epoch 3"])))
+            log(f"[main_video_unshaded] 2 epochs then --restore for a third "
+                f"in {time.time() - t0:.1f} s; run dir {Path(run_b).name}: "
+                f"checkpoints {ckpts}, epoch 3 scalars "
+                + ", ".join(f"{r['tag']} {r['value']:.4g}" for r in rows)
+                + f"; LoadedModel from params.npz and from epoch 3: finite "
+                f"(1, 64, 64, 6) frames, equal: "
+                f"{bool(torch.equal(outs['params.npz'], outs['epoch 3']))}: "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError("the training entry point's run dir is "
+                                   "wrong")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -2261,9 +2584,10 @@ def main() -> int:
             del net, x, y
 
     reference_renderers(grid, counters, add, frame_cfg)
+    training(lm.cfg.model, grid, counters, add)
 
     log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
-        f"18, 19, 21, 22 and 25-28: {path_launches}")
+        f"18, 19, 21, 22 and 25-31: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),

@@ -1,10 +1,12 @@
 """Configuration dataclasses of the port.
 
 Own copies of the JAX package's `config.py` dataclasses, holding the fields
-that the ported path reads (`TrainConfig` whole); field names, defaults
-and meanings are the reference's.  `config_from_json` is the counterpart
-of `infer/loadedmodel.config_from_json` and reads a run directory's
-flattened ``config.json``.
+that the ported path reads (`LossConfig`, `TrainConfig` and
+`ParallelConfig` whole), the loss DSL parsers and `flatten_config`; field
+names, defaults, meanings and error messages are the reference's.
+`config_from_json` is the counterpart of
+`infer/loadedmodel.config_from_json` and reads a run directory's flattened
+``config.json``, the file `train/checkpoint.write_info` writes.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 # G-buffer channel layout: 12 channels per pixel
@@ -129,12 +131,88 @@ class ModelConfig:
     planar_int8: bool = False
 
 
+VALID_LOSS_NAMES = (
+    "mse", "l2", "l2_loss", "l1", "l1_loss", "tl2", "temp-l2",
+    "l2-ds", "l1-ds", "perceptual", "texture", "adv", "gan", "tgan", "sgan",
+    "gdl",
+)
+VALID_LOSS_TARGETS = ("mask", "normal", "color", "ao", "depth", "all")
+
+_CANONICAL = {"l2": "mse", "l2_loss": "mse", "l1_loss": "l1",
+              "tl2": "temp-l2", "gan": "adv"}
+
+
+def parse_loss_dsl(spec: str) -> Dict[Tuple[str, str], float]:
+    """Parse the loss DSL ``"<loss>:<target>:<weight>,..."`` into a dict
+    ``(canonical_name, target) -> weight`` (weight 1 when left out)."""
+    weights: Dict[Tuple[str, str], float] = {}
+    for token in spec.split(","):
+        token = token.strip()
+        if not token:
+            continue
+        parts = token.split(":")
+        if len(parts) < 2:
+            raise ValueError(f"illegal format for loss list entry: {token!r}")
+        name, target = parts[0], parts[1]
+        weight = float(parts[2]) if len(parts) > 2 else 1.0
+        if name not in VALID_LOSS_NAMES:
+            raise ValueError(f"unknown loss {name!r}")
+        if target not in VALID_LOSS_TARGETS:
+            raise ValueError(f"Unknown target: {target}")
+        name = _CANONICAL.get(name, name)
+        if name in ("adv", "tgan", "sgan") and target != "all":
+            raise ValueError(f"{name} loss requires target 'all'")
+        weights[(name, target)] = weight
+    return weights
+
+
+def parse_layer_weights(spec: str) -> List[Tuple[str, float]]:
+    """Parse VGG layer lists like ``"conv_1:0.03,conv_5:1.0"`` (weight 1
+    when left out)."""
+    out: List[Tuple[str, float]] = []
+    for token in spec.split(","):
+        token = token.strip()
+        if not token:
+            continue
+        if ":" in token:
+            name, w = token.split(":")
+            out.append((name, float(w)))
+        else:
+            out.append((token, 1.0))
+    return out
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss-stack configuration (reference: mainVideoUnshaded.py:70-90)."""
+
+    losses: str = "l1:mask:1,l1:ao:1,l1:normal:10,l1:depth:10,temp-l2:color:0.1"
+    # per-layer inverse-response weights over all 16 convs of the trimmed
+    # VGG-19 (the reference's VGGAnalysis defaults)
+    perceptual_loss_layers: str = (
+        "conv_1:0.026423,conv_2:0.009285,conv_3:0.006710,conv_4:0.004898,"
+        "conv_5:0.003910,conv_6:0.003956,conv_7:0.003813,conv_8:0.002968,"
+        "conv_9:0.002997,conv_10:0.003631,conv_11:0.004147,conv_12:0.005765,"
+        "conv_13:0.007442,conv_14:0.009666,conv_15:0.012586,conv_16:0.013377")
+    texture_loss_layers: str = "conv_1:1,conv_3:1,conv_5:1"
+    discriminator: str = "enhanceNetLarge"
+    # shading constants used inside the loss
+    loss_ambient: float = 0.1
+    loss_diffuse: float = 1.0
+    loss_specular: float = 0.0
+    loss_ao: float = 1.0
+    padding: int = 16                  # border zeroing in pixels
+    gan_type: str = "bce"              # bce | wgan | wgan-gp
+    wgan_lambda: float = 10.0
+
+    def weight_dict(self) -> Dict[Tuple[str, str], float]:
+        return parse_loss_dsl(self.losses)
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """Training operating point (reference: README.md:50-71,
-    mainVideoUnshaded.py).  Inference reads ``initial_image_mode``,
-    ``disable_temporal`` and ``ao_inverted``; the rest waits for the
-    trainer."""
+    mainVideoUnshaded.py)."""
 
     batch_size: int = 16
     crop_size: int = 32                # low-res crop; high-res = 4x
@@ -168,22 +246,46 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Device layout of multi-device runs: devices on the batch axis."""
+
+    data_axis: str = "data"
+    data_parallel: int = 1             # number of devices on the batch axis
+
+
+@dataclass(frozen=True)
 class Config:
     render: RenderConfig = field(default_factory=RenderConfig)
     shading: ShadingConfig = field(default_factory=ShadingConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
 
+def flatten_config(cfg: Any, prefix: str = "") -> Dict[str, Any]:
+    """Flatten a (nested) config dataclass into dotted keys for logging."""
+    out: Dict[str, Any] = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        key = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(v):
+            out.update(flatten_config(v, prefix=key + "."))
+        else:
+            out[key] = v
+    return out
+
+
 def config_from_json(path: str) -> Config:
     """Rebuild a Config from the flattened ``config.json`` of a run dir.
 
-    Like the reference, the ``model.*`` and ``train.*`` sections are
-    restored (keys the dataclasses do not know are skipped); render and
-    shading keep their defaults (the caller passes its own)."""
+    Like the reference, the ``model.*``, ``loss.*`` and ``train.*``
+    sections are restored (keys the dataclasses do not know are skipped);
+    render, shading and parallel keep their defaults (the caller passes
+    its own)."""
     with open(path) as f:
         flat = json.load(f)
 
@@ -197,4 +299,5 @@ def config_from_json(path: str) -> Config:
         return cls(**kw)
 
     return Config(model=section("model", ModelConfig),
+                  loss=section("loss", LossConfig),
                   train=section("train", TrainConfig))

@@ -3,10 +3,11 @@
 Counterpart of the JAX package's `infer/loadedmodel.py`.  A run directory
 carries ``config.json`` (its ``model.*`` and ``train.*`` sections) and
 ``params.npz`` (the Flax parameters, read with numpy and mapped by
-`models.generators.params_from_flax`); a ``.pth`` path goes to the
-reference-checkpoint importer (`infer/torch_import.py`).  Orbax
-checkpoints (``checkpoints/<epoch>/``) are not read: the port's own
-checkpoint format comes with training (ROADMAP.md, queue A, slice 9).
+`models.generators.params_from_flax`), and, when the port's trainer
+wrote it, ``checkpoints/epoch_<N>.pt`` (`train/checkpoint.py`); a
+``.pth`` path goes to the reference-checkpoint importer
+(`infer/torch_import.py`).  Orbax checkpoints (``checkpoints/<epoch>/``)
+are not read (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -60,9 +61,10 @@ class LoadedModel:
                      device: DeviceLike = None) -> "LoadedModel":
         """``fast=True`` builds the generator with ``fused_upsample`` (the
         state dict is the same, so any checkpoint loads either way).
-        ``epoch`` selects an orbax checkpoint in JAX; a run dir without
-        one has a single ``params.npz``, which is read whatever it says.
-        A ``.pth`` file goes to `torch_import.load_reference_pth`."""
+        ``epoch`` selects the port's checkpoint ``checkpoints/epoch_<N>.pt``;
+        without it the run dir's ``params.npz`` is read (the latest
+        checkpoint where there is none).  A ``.pth`` file goes to
+        `torch_import.load_reference_pth`."""
         dev = resolve_device(device)
         if run_dir.endswith(".pth") and os.path.isfile(run_dir):
             from isosurfacesuperresolution_tpu_torch.infer.torch_import \
@@ -72,17 +74,19 @@ class LoadedModel:
         if fast:
             cfg = cfg.replace(model=dataclasses.replace(
                 cfg.model, fused_upsample=True))
+        from isosurfacesuperresolution_tpu_torch.train.checkpoint import (
+            CheckpointManager, refuse_orbax)
         ckpt = os.path.join(run_dir, "checkpoints")
-        has_orbax = os.path.isdir(ckpt) and any(
-            n.isdigit() for n in os.listdir(ckpt))
+        refuse_orbax(ckpt)
         npz = os.path.join(run_dir, "params.npz")
-        if has_orbax or not os.path.exists(npz):
-            raise NotImplementedError(
-                f"{run_dir}: orbax checkpoints (checkpoints/<epoch>/) are "
-                "not read by the port; its checkpoint format comes with "
-                "training (ROADMAP.md, queue A, slice 9).  Run dirs with "
-                "config.json and params.npz alone load.")
-        return cls.from_params_npz(npz, cfg, dev)
+        if epoch is None and os.path.exists(npz):
+            return cls.from_params_npz(npz, cfg, dev)
+        if not os.path.isdir(ckpt):
+            raise FileNotFoundError(f"{run_dir}: no params.npz and no "
+                                    "checkpoints/")
+        model = create_network(cfg.model)
+        CheckpointManager(run_dir).restore_params(model, epoch)
+        return cls(build_model(cfg, model.state_dict(), dev), cfg)
 
     @classmethod
     def from_params_npz(cls, path: str, cfg: Config,

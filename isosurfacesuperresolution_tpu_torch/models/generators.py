@@ -18,6 +18,17 @@ with the composed kernel on the edge-padded input, then a pixel shuffle;
 it equals the unfused pair in the interior and differs on the high-res
 conv's 1-px border.  ``use_sn``: `create_network` wraps the module in
 `utils.spectral_norm.SpectralNormalizedModule`.
+
+A fresh module is initialised as the Flax module is (`init_like_flax`):
+the same distributions from a `torch.Generator`, not the same draws.
+EnhanceNet's block convs are orthogonal with the ReLU gain sqrt(2), the
+second one of each block scaled by `branch_scale` (without it the trunk's
+activation std grows from 0.17 to 29 over 10 blocks at init, and early
+training kills the first post-upsample ReLU); every other kernel is
+lecun-normal, biases zero, EnhanceNet's extra output channels (AO) start
+at bias 1.  Training differentiates through BN's running statistics too,
+as JAX's optimizer updates its ``batch_stats`` leaves (the trainer runs
+with ``train=False``), so they are parameters here.
 """
 
 from __future__ import annotations
@@ -74,21 +85,120 @@ def _recon_image(inputs: torch.Tensor, outputs: torch.Tensor,
 
 
 class _BatchNorm(nn.Module):
-    """Inference batch norm with Flax's four arrays: ``weight`` (scale),
-    ``bias``, ``running_mean`` and ``running_var``; computed in float32
-    and cast back, as Flax promotes."""
+    """Batch norm from the running statistics, as Flax's
+    ``BatchNorm(use_running_average=True)`` computes it: ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in float32, cast back.  Flax's
+    four arrays are ``weight`` (scale), ``bias``, ``running_mean`` and
+    ``running_var``, all parameters: the loss reaches the statistics
+    too."""
 
     def __init__(self, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self.running_mean = nn.Parameter(torch.zeros(features))
+        self.running_var = nn.Parameter(torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.to(torch.float32), self.running_mean,
-                            self.running_var, self.weight, self.bias,
-                            False, 0.0, BN_EPS).to(x.dtype)
+        def c(t):
+            return t.view(1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        y = (x.to(torch.float32) - c(self.running_mean)) * c(mul) \
+            + c(self.bias)
+        return y.to(x.dtype)
+
+
+def branch_scale(num_blocks: int) -> float:
+    """Init scale of the second conv of each residual block: with N
+    additive skips the trunk's variance then grows at most (1 + 1/N)^N < e
+    at init."""
+    return 1.0 / math.sqrt(max(num_blocks, 1))
+
+
+def _flax_shape(layer: nn.Module) -> Tuple[int, ...]:
+    """The Flax kernel's shape of a conv, transposed conv or dense layer:
+    (kh, kw, in, out) or (in, out)."""
+    w = layer.weight
+    if isinstance(layer, nn.ConvTranspose2d):          # (in, out, kh, kw)
+        return (w.shape[2], w.shape[3], w.shape[0], w.shape[1])
+    if w.dim() == 4:                                    # (out, in, kh, kw)
+        return (w.shape[2], w.shape[3], w.shape[1], w.shape[0])
+    return (w.shape[1], w.shape[0])                     # (out, in)
+
+
+def _to_torch_layout(layer: nn.Module, k: torch.Tensor) -> torch.Tensor:
+    """A Flax-layout kernel in the layer's own layout (the mapping of
+    `params_from_flax`)."""
+    if isinstance(layer, nn.ConvTranspose2d):
+        return k.flip(0, 1).permute(2, 3, 0, 1)
+    if k.dim() == 4:
+        return k.permute(3, 2, 0, 1)
+    return k.t()
+
+
+def truncated_normal(shape, generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Standard normal draws truncated to [-2, 2] (inverse CDF)."""
+    lo, hi = (0.5 * (1.0 + math.erf(v / math.sqrt(2.0))) for v in (-2, 2))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = lo + (hi - lo) * u
+    return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(
+        -2.0, 2.0).to(torch.float32)
+
+
+def flax_kernel(rule: Tuple[str, float], shape: Tuple[int, ...],
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+    """A kernel of Flax's layout drawn as Flax's initialiser ``rule``
+    draws one: ``("orthogonal", scale)``: the (prod(shape[:-1]), out)
+    matrix with orthonormal columns (rows if fewer), times scale;
+    ``("fan_in", scale)``: truncated normal of variance scale / fan_in
+    (``("fan_in", 1)`` is lecun-normal); ``("fan_out_normal", scale)``:
+    normal of variance scale / fan_out; ``("normal", std)``."""
+    kind, scale = rule
+    receptive = int(np.prod(shape[:-2])) if len(shape) > 2 else 1
+    if kind == "orthogonal":
+        cols = shape[-1]
+        rows = int(np.prod(shape)) // cols
+        a = torch.randn((max(rows, cols), min(rows, cols)),
+                        generator=generator, dtype=torch.float64)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        if rows < cols:
+            q = q.t()
+        return (scale * q).reshape(shape).to(torch.float32)
+    if kind == "fan_in":
+        std = math.sqrt(scale / (shape[-2] * receptive)) / .87962566103423978
+        return truncated_normal(shape, generator) * std
+    if kind == "fan_out_normal":
+        std = math.sqrt(scale / (shape[-1] * receptive))
+        return torch.randn(shape, generator=generator) * std
+    if kind == "normal":
+        return torch.randn(shape, generator=generator) * scale
+    raise ValueError(f"unknown init rule {kind!r}")
+
+
+LECUN = ("fan_in", 1.0)
+
+
+@torch.no_grad()
+def init_like_flax(module: nn.Module, rules, generator=None) -> None:
+    """Initialise every conv, transposed conv and dense layer of
+    ``module`` as Flax does: the kernel by ``rules(name)`` (see
+    `flax_kernel`), the bias zero; batch norms to scale 1, bias 0, mean 0
+    and variance 1.  ``generator`` None draws from PyTorch's global
+    generator."""
+    for name, layer in module.named_modules():
+        if isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            k = flax_kernel(rules(name), _flax_shape(layer), generator)
+            layer.weight.copy_(_to_torch_layout(layer, k))
+            if layer.bias is not None:
+                layer.bias.zero_()
+        elif isinstance(layer, _BatchNorm):
+            for t, v in ((layer.weight, 1.0), (layer.bias, 0.0),
+                         (layer.running_mean, 0.0),
+                         (layer.running_var, 1.0)):
+                t.fill_(v)
 
 
 class _Generator(nn.Module):
@@ -123,7 +233,8 @@ class EnhanceNet(_Generator):
     upsample x2 + conv + ReLU, one more conv + ReLU, the output conv, then
     the residual reconstruction against the upsampled masked input."""
 
-    def __init__(self, cfg: ModelConfig, in_channels: Optional[int] = None):
+    def __init__(self, cfg: ModelConfig, in_channels: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__(cfg, in_channels)
         stages = int(math.log2(cfg.upscale_factor))
         if 2 ** stages != cfg.upscale_factor:
@@ -150,6 +261,21 @@ class EnhanceNet(_Generator):
             self.add_module(f"post{j + 1}", _conv3(f, f))
         self.add_module(f"post{stages + 1}", _conv3(f, f))
         self.out = _conv3(f, cfg.output_channels)
+        gain = math.sqrt(2.0)
+        branch = branch_scale(cfg.num_residual_blocks)
+
+        def rule(name):
+            if name.endswith("_conv1") and name.startswith("block"):
+                return ("orthogonal", gain)
+            if name.endswith("_conv2") and name.startswith("block"):
+                return ("orthogonal", gain * branch)
+            return LECUN
+
+        init_like_flax(self, rule, generator)
+        n_extra = cfg.output_channels - len(cfg.channel_mask)
+        if n_extra > 0:     # extra channels (AO) start unoccluded
+            with torch.no_grad():
+                self.out.bias[-n_extra:] = 1.0
 
     def _composed(self, name: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """The fused stage's low-res OIHW kernel and bias in the compute
@@ -213,7 +339,8 @@ class RCAN(_Generator):
 
     def __init__(self, cfg: ModelConfig, num_groups: int = 10,
                  num_blocks: int = 20, reduction: int = 16,
-                 in_channels: Optional[int] = None):
+                 in_channels: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__(cfg, in_channels)
         self.num_groups, self.num_blocks = num_groups, num_blocks
         c, r = cfg.num_features, cfg.upscale_factor
@@ -229,6 +356,7 @@ class RCAN(_Generator):
         self.rir_post = _conv3(c, c)
         self.up = _conv3(c, c * r * r)
         self.post = _conv3(c, cfg.output_channels)
+        init_like_flax(self, lambda name: LECUN, generator)
 
     def _rcab(self, x: torch.Tensor, name: str) -> torch.Tensor:
         y = F.leaky_relu(self._conv(f"{name}_conv1", x))
@@ -267,7 +395,8 @@ class TecoGAN(_Generator):
     conv adjoint, whose weight is the Flax kernel flipped in both spatial
     axes (the reference's own layer and layout)."""
 
-    def __init__(self, cfg: ModelConfig, in_channels: Optional[int] = None):
+    def __init__(self, cfg: ModelConfig, in_channels: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__(cfg, in_channels)
         c = cfg.num_features
         self.pre = _conv3(self.in_channels, c)
@@ -279,6 +408,10 @@ class TecoGAN(_Generator):
         self.up2 = nn.ConvTranspose2d(c, c, 3, stride=2, padding=1,
                                       output_padding=1)
         self.out = _conv3(c, cfg.output_channels)
+        branch = ("fan_in", branch_scale(cfg.num_residual_blocks) ** 2)
+        init_like_flax(self, lambda name: branch if (
+            name.startswith("block") and name.endswith("_conv2")) else LECUN,
+            generator)
 
     def _conv_t(self, name: str, x: torch.Tensor) -> torch.Tensor:
         layer = getattr(self, name)
@@ -305,7 +438,8 @@ class SubpixelNet(_Generator):
     Cout*r*r features), ReLU between, then PixelShuffle.  Returns
     ``(output, None)``."""
 
-    def __init__(self, cfg: ModelConfig, in_channels: Optional[int] = None):
+    def __init__(self, cfg: ModelConfig, in_channels: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__(cfg, in_channels)
         r = cfg.upscale_factor
         self.conv1 = nn.Conv2d(self.in_channels, 64, 5, padding=2)
@@ -313,6 +447,9 @@ class SubpixelNet(_Generator):
         self.conv3 = _conv3(64, 64)
         self.conv4 = _conv3(64, 32)
         self.conv5 = _conv3(32, cfg.output_channels * r * r)
+        init_like_flax(self, lambda name: ("orthogonal", 1.0) if name ==
+                       "conv5" else ("orthogonal", math.sqrt(2.0)),
+                       generator)
 
     def forward(self, inputs: torch.Tensor
                 ) -> Tuple[torch.Tensor, None]:
@@ -331,17 +468,19 @@ _MODELS = {
 }
 
 
-def create_network(cfg: ModelConfig, in_channels: Optional[int] = None
+def create_network(cfg: ModelConfig, in_channels: Optional[int] = None,
+                   generator: Optional[torch.Generator] = None
                    ) -> nn.Module:
     """Name -> generator module (RCAN with its defaults: 10 groups of 20
-    blocks, reduction 16).  ``in_channels`` defaults to the temporal
-    `network_input_channels`.  With ``cfg.use_sn`` the module is wrapped
-    so its forward runs on spectrally normalized weights; the state dict
-    is unchanged."""
+    blocks, reduction 16), initialised as Flax initialises it, from
+    ``generator`` (None: PyTorch's global generator).  ``in_channels``
+    defaults to the temporal `network_input_channels`.  With
+    ``cfg.use_sn`` the module is wrapped so its forward runs on spectrally
+    normalized weights; the state dict is unchanged."""
     key = cfg.model.lower()
     if key not in _MODELS:
         raise ValueError(f"Unknown model {cfg.model}")
-    module = _MODELS[key](cfg, in_channels=in_channels)
+    module = _MODELS[key](cfg, in_channels=in_channels, generator=generator)
     if cfg.use_sn:
         from isosurfacesuperresolution_tpu_torch.utils.spectral_norm import (
             SpectralNormalizedModule)
@@ -399,3 +538,43 @@ def params_from_flax(tree_or_npz: Union[str, Mapping],
             a = a.t()
         state[f"{layer}.{names[coll, leaf]}"] = a.contiguous()
     return state
+
+
+def flax_from_params(state: Mapping[str, torch.Tensor],
+                     cfg: Optional[ModelConfig] = None) -> dict:
+    """The inverse of `params_from_flax`: a module's ``state_dict`` ->
+    flat Flax keys (``params/<layer>/kernel`` ..., joined by "/" as the
+    JAX package's `train/checkpoint.save_params_npz` joins them) -> numpy
+    float32 arrays in Flax's layouts.  A 1-D ``weight`` is a BatchNorm's
+    ``scale``; with ``cfg`` naming a pixel-shuffle EnhanceNet its
+    ``up{j}`` is ``up{j}/Conv_0``, and TecoGAN's ``up1``/``up2`` are
+    flipped back."""
+    model = cfg.model.lower() if cfg is not None else ""
+    transposed = ("up1", "up2") if model == "tecogan" else ()
+    shuffle_up = (model == "enhancenet" and cfg.upsample == "pixelShuffle")
+    leaves = {"bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+    out = {}
+    for name, t in state.items():
+        layer, leaf = name.rsplit(".", 1)
+        a = t.detach().to("cpu", torch.float32)
+        if leaf == "weight" and a.dim() == 1:
+            coll, fleaf = "params", "scale"
+        elif leaf == "weight":
+            coll, fleaf = "params", "kernel"
+            if a.dim() == 4:
+                a = (a.permute(2, 3, 0, 1).flip(0, 1) if layer in transposed
+                     else a.permute(2, 3, 1, 0))
+            else:
+                a = a.t()
+        elif leaf in leaves:
+            coll, fleaf = leaves[leaf]
+        else:
+            raise ValueError(f"unexpected state key {name!r}")
+        path = [coll, layer]
+        if shuffle_up and coll == "params" and layer in (
+                f"up{j}" for j in range(1, 9)):
+            path.append("Conv_0")
+        out["/".join(path + [fleaf])] = np.ascontiguousarray(a.numpy())
+    return out

@@ -7,8 +7,10 @@ align_corners=False)`.  Bicubic is `jax.image.resize`'s "cubic": Keys'
 kernel with a = -0.5, taps outside the image dropped and the remaining
 weights renormalized to sum 1.  `F.interpolate(mode="bicubic")` is
 another function (a = -0.75, clamped edges), so the port applies JAX's
-per-axis weight matrices.  Downsampling differs between the libraries
-(JAX antialiases), so it is refused here.
+per-axis weight matrices.  Downsampling differs between the libraries:
+`jax.image.resize` antialiases (its kernel widened by the scale), which
+`resize` reproduces for "bilinear" with JAX's weight matrices
+(`linear_matrix`); the generators' `interpolate_nchw` only upsamples.
 """
 
 from __future__ import annotations
@@ -47,18 +49,43 @@ def bicubic_matrix(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[:, None], w, 0).astype(np.float32)
 
 
-_BICUBIC: Dict[tuple, torch.Tensor] = {}
+@lru_cache(maxsize=None)
+def linear_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 weights of a 1-D linear resize as
+    `jax.image.resize(..., "linear")` computes them (antialiased: the
+    triangle kernel widened by n_in / n_out when downsampling), each row
+    divided by its sum."""
+    scale = np.float32(n_out) / np.float32(n_in)
+    inv_scale = np.float32(1.0) / scale
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
+              * inv_scale - np.float32(0.5))
+    x = np.abs(sample[:, None] - np.arange(n_in, dtype=np.float32)) \
+        / kernel_scale
+    w = np.maximum(np.float32(0), np.float32(1) - x).astype(np.float32)
+    total = w.sum(axis=1, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[:, None], w, 0).astype(np.float32)
+
+
+_MATRICES: Dict[tuple, torch.Tensor] = {}
+
+
+def _weights(fn, n_in: int, n_out: int, x: torch.Tensor) -> torch.Tensor:
+    """``fn(n_in, n_out)`` on ``x``'s device in its type, copied there
+    once per (function, size, device, type)."""
+    key = (fn.__name__, n_in, n_out, x.device, x.dtype)
+    if key not in _MATRICES:
+        _MATRICES[key] = torch.as_tensor(fn(n_in, n_out)).to(
+            x.device, x.dtype)
+    return _MATRICES[key]
 
 
 def _bicubic_weights(n_in: int, n_out: int, x: torch.Tensor
                      ) -> torch.Tensor:
-    """`bicubic_matrix` on ``x``'s device in its type, copied there once
-    per (size, device, type)."""
-    key = (n_in, n_out, x.device, x.dtype)
-    if key not in _BICUBIC:
-        _BICUBIC[key] = torch.as_tensor(bicubic_matrix(n_in, n_out)).to(
-            x.device, x.dtype)
-    return _BICUBIC[key]
+    return _weights(bicubic_matrix, n_in, n_out, x)
 
 
 def interpolate_nchw(x: torch.Tensor, size: Tuple[int, int],
@@ -89,10 +116,20 @@ def interpolate_nchw(x: torch.Tensor, size: Tuple[int, int],
 def resize(x: torch.Tensor, *, scale: Optional[float] = None,
            size: Optional[Tuple[int, int]] = None,
            method: str = "bilinear") -> torch.Tensor:
-    """Upsample (B, H, W, C) images by ``scale`` or to ``size``."""
+    """Resize (B, H, W, C) images by ``scale`` or to ``size``: upsampling
+    by nearest, bilinear or bicubic, downsampling by JAX's antialiased
+    bilinear."""
     if size is None:
         size = (int(round(x.shape[-3] * scale)),
                 int(round(x.shape[-2] * scale)))
+    if size[0] < x.shape[-3] or size[1] < x.shape[-2]:
+        if method not in ("bilinear", "linear"):
+            raise ValueError(f"{method}: only upsampling is ported; "
+                             "downsampling is bilinear (JAX's antialiased "
+                             "linear)")
+        wh = _weights(linear_matrix, x.shape[-3], size[0], x)
+        ww = _weights(linear_matrix, x.shape[-2], size[1], x)
+        return torch.einsum("oh,bhwc,pw->bopc", wh, x, ww)
     y = interpolate_nchw(x.permute(0, 3, 1, 2), tuple(size), method)
     return y.permute(0, 2, 3, 1)
 

@@ -9,7 +9,13 @@ converge, so neither `torch.nn.utils.spectral_norm` (a random persistent
 the same sigma.  The normalization is a pure function of the weights: the
 planar engine applies it once, before composing its kernels, and
 `SpectralNormalizedModule` (what `models.generators.create_network`
-returns under ``use_sn``) once per loaded state.
+returns under ``use_sn``) once per state of its weights, or, where a
+gradient is wanted, in every forward with the gradient flowing through
+the power iteration (as JAX's does).  `SNConv2d` and `SNLinear` are the
+discriminators' layers (JAX's ``SNConv`` / ``SNDense``): the same
+stateless normalization in every forward, differentiable, unlike
+`torch.nn.utils.spectral_norm`, which keeps a persistent ``u`` and
+detaches it.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import math
 from typing import Dict, Iterable, Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
@@ -44,6 +51,19 @@ def _jax_order(ndim: int) -> tuple:
     return tuple(range(2, ndim)) + (1, 0)
 
 
+def normalize_weight(w: torch.Tensor, transposed: bool = False
+                     ) -> torch.Tensor:
+    """`spectral_normalize` of one torch weight in JAX's layout: a conv's
+    (out, in, kh, kw) as HWIO, a linear's (out, in) as (in, out), a
+    transposed conv's (in, out, kh, kw) as its Flax kernel (flipped)."""
+    if transposed:
+        return spectral_normalize(
+            w.flip(2, 3).permute(2, 3, 0, 1)).permute(2, 3, 0, 1).flip(2, 3)
+    perm = _jax_order(w.dim())
+    inv = [perm.index(i) for i in range(w.dim())]
+    return spectral_normalize(w.permute(perm)).permute(inv)
+
+
 def apply_sn_tree(state: Mapping[str, torch.Tensor],
                   transposed: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
     """Spectrally normalize every ``*.weight`` of two or more dimensions
@@ -56,14 +76,7 @@ def apply_sn_tree(state: Mapping[str, torch.Tensor],
     for name, t in state.items():
         layer, leaf = name.rpartition(".")[::2]
         if leaf == "weight" and t.dim() >= 2:
-            if layer in transposed:
-                t = spectral_normalize(
-                    t.flip(2, 3).permute(2, 3, 0, 1)).permute(
-                        2, 3, 0, 1).flip(2, 3)
-            else:
-                perm = _jax_order(t.dim())
-                inv = [perm.index(i) for i in range(t.dim())]
-                t = spectral_normalize(t.permute(perm)).permute(inv)
+            t = normalize_weight(t, layer in transposed)
         out[name] = t
     return out
 
@@ -73,27 +86,38 @@ class SpectralNormalizedModule(nn.Module):
     weights, the counterpart of JAX's `SpectralNormalizedModule`.
 
     The state dict is the inner module's own (raw weights, the same keys),
-    so checkpoints load either way.  The normalized weights are computed
-    once from the raw state, again after each `load_state_dict`, and move
-    with the module; JAX normalizes per apply, the same function of the
+    so checkpoints load either way.  Without a gradient the normalized
+    weights are computed once for each state of the raw weights (again
+    after a `load_state_dict`, an optimizer step or a move); with one
+    (grad mode on and a weight that requires it) in every forward, from
+    the parameters themselves, so that the gradient flows through the
+    power iteration.  JAX normalizes per apply: the same function of the
     same weights."""
 
     def __init__(self, inner: nn.Module):
         super().__init__()
         self.inner = inner
-        self._refresh()
+        self._transposed = [n for n, m in inner.named_modules()
+                            if isinstance(m, nn.ConvTranspose2d)]
+        self._key = None
+        self._normalized = {}
 
-    def _refresh(self) -> None:
-        with torch.no_grad():
-            self._normalized = apply_sn_tree(
-                self.inner.state_dict(),
-                [n for n, m in self.inner.named_modules()
-                 if isinstance(m, nn.ConvTranspose2d)])
+    def _state(self) -> dict:
+        return {**dict(self.inner.named_parameters()),
+                **dict(self.inner.named_buffers())}
 
-    def _apply(self, fn, *args, **kwargs):
-        super()._apply(fn, *args, **kwargs)
-        self._normalized = {k: fn(v) for k, v in self._normalized.items()}
-        return self
+    def _weights(self) -> dict:
+        state = self._state()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in state.values()):
+            return apply_sn_tree(state, self._transposed)
+        key = tuple((t.data_ptr(), t._version, t.device)
+                    for t in state.values())
+        if key != self._key:
+            with torch.no_grad():
+                self._normalized = apply_sn_tree(state, self._transposed)
+            self._key = key
+        return self._normalized
 
     def state_dict(self, *args, **kwargs):
         return self.inner.state_dict(*args, **kwargs)
@@ -102,14 +126,30 @@ class SpectralNormalizedModule(nn.Module):
                         assign: bool = False):
         out = self.inner.load_state_dict(state_dict, strict=strict,
                                          assign=assign)
-        self._refresh()
+        self._key = None
         return out
 
     def forward(self, *args, **kwargs):
-        return functional_call(self.inner, self._normalized, args, kwargs)
+        return functional_call(self.inner, self._weights(), args, kwargs)
 
     def __getattr__(self, name: str):
         try:
             return super().__getattr__(name)
         except AttributeError:
             return getattr(self._modules["inner"], name)
+
+
+class SNConv2d(nn.Conv2d):
+    """A conv whose forward runs on `normalize_weight` of its weight."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, normalize_weight(self.weight),
+                                  self.bias)
+
+
+class SNLinear(nn.Linear):
+    """A linear layer whose forward runs on `normalize_weight` of its
+    weight."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, normalize_weight(self.weight), self.bias)

@@ -31,7 +31,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from isosurfacesuperresolution_tpu_torch.render.sweep_tiled import pick_tile
 from isosurfacesuperresolution_tpu_torch.volume.grid import (
     DEFAULT_BRICK_SIZE, BrickGrid, GridTransform)
 
@@ -94,6 +93,14 @@ class PackedAxisVolume:
                 .permute(0, 1, 3, 2, 4).reshape(Z, X, Y))
 
 
+def _pick_tile(extent: int, tile: int) -> int:
+    # imported here: render/sweep.py imports this module, so importing the
+    # render package at this module's top made `volume` unimportable first
+    from isosurfacesuperresolution_tpu_torch.render.sweep_tiled import (
+        pick_tile)
+    return pick_tile(extent, tile)
+
+
 def pack_axis(vol_zxy: torch.Tensor, tile: int = 256, background=0,
               tolerance: float = 0.0) -> PackedAxisVolume:
     """Pack one slice-major (Z, X, Y) volume in its stored type, on its
@@ -101,7 +108,7 @@ def pack_axis(vol_zxy: torch.Tensor, tile: int = 256, background=0,
     values all lie within ``tolerance`` of the background (it then reads
     as exact background); integer volumes ignore it.  0: lossless."""
     Z, X, Y = vol_zxy.shape
-    TX, TY = pick_tile(X, tile), pick_tile(Y, tile)
+    TX, TY = _pick_tile(X, tile), _pick_tile(Y, tile)
     tiles = _tiles(vol_zxy, TX, TY)                   # (Z, NTX, NTY, TX, TY)
     if tolerance > 0.0 and vol_zxy.is_floating_point():
         occ = (torch.abs(tiles.to(torch.float32) - background)
@@ -147,7 +154,7 @@ def pack_ao_axis(ao_zcxy: torch.Tensor, tile: int = 128,
     Z, C, X, Y = ao_zcxy.shape
     if C != 4:
         raise ValueError(f"expected 4 SH channels, got {C}")
-    TX, TY = pick_tile(X, tile), pick_tile(Y, tile)
+    TX, TY = _pick_tile(X, tile), _pick_tile(Y, tile)
     tiles = _tiles(ao_zcxy, TX, TY)               # (Z, NTX, NTY, 4, TX, TY)
     occ = (torch.abs(tiles.to(torch.float32)) > tolerance).flatten(3).any(3)
     atlas, slots = _pack(tiles, occ, 0, dtype)

@@ -759,3 +759,109 @@ def test_march_copies_nothing_from_the_host_per_step():
         torch.cuda.synchronize()
     h2d = [e for e in prof.events() if "HtoD" in e.name]
     assert hit.any() and len(h2d) <= 1, [e.name for e in h2d]
+
+
+# ---------------------------------------------------------------------------
+# training (slice 9): card vs CPU
+# ---------------------------------------------------------------------------
+
+def _train_setup(device, losses="l1:mask:1,l1:ao:1,l1:normal:10,"
+                 "l1:depth:10,temp-l2:color:0.1", sn=False, gan="bce"):
+    from isosurfacesuperresolution_tpu_torch.config import (
+        Config, LossConfig, ModelConfig, TrainConfig)
+    from isosurfacesuperresolution_tpu_torch.losses.lossnet_unshaded import (
+        LossNetUnshaded)
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network)
+    from isosurfacesuperresolution_tpu_torch.train import trainer as TR
+    cfg = Config(model=ModelConfig(num_residual_blocks=2, num_features=16),
+                 loss=LossConfig(losses=losses, padding=4, gan_type=gan),
+                 train=TrainConfig(batch_size=2, crop_size=16, num_frames=3,
+                                   learning_rate=1e-3))
+    gen = torch.Generator().manual_seed(15)
+    model = create_network(cfg.model, generator=gen).to(device)
+    crit = LossNetUnshaded(cfg.loss, high_res=64, use_spectral_norm=sn)
+    spec = TR.make_optimizer(cfg)
+    state = TR.create_train_state(cfg, model, crit, spec, gen,
+                                  discr_optimizer=spec)
+    return cfg, state, crit, TR
+
+
+def _train_clip(seed, device):
+    rng = np.random.RandomState(seed)
+    low = rng.rand(2, 3, 16, 16, 5).astype(np.float32)
+    low[..., 0] = np.sign(low[..., 0] - 0.3)
+    flow = (rng.rand(2, 3, 16, 16, 2).astype(np.float32) - 0.5) * 0.1
+    high = np.repeat(np.repeat(np.concatenate(
+        [low, rng.rand(2, 3, 16, 16, 1).astype(np.float32)], -1), 4, 2), 4, 3)
+    return [torch.from_numpy(a).to(device) for a in (low, flow, high)]
+
+
+@pytest.mark.cuda
+def test_train_steps_card_match_cpu():
+    """Three Adam steps from the same seeded state: losses rel 1e-4, the
+    parameters within 1e-2 x lr (a few elements of a leaf may move on a
+    gradient known only to float32 rounding: at most 3%, within 0.1 x
+    lr), as the CPU tests hold the CPU path against JAX."""
+    _need_card()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, crit, TR = _train_setup(dev)
+        step = TR.make_train_step(cfg, state.model, crit)
+        losses = [float(step(state, *_train_clip(40 + i, dev))[1])
+                  for i in range(3)]
+        runs[dev] = (losses, {k: v.cpu() for k, v in
+                              state.model.state_dict().items()})
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    lr = 1e-3
+    for k, v in runs["cpu"][1].items():
+        d = (runs["cuda"][1][k] - v).abs()
+        far = d > 1e-2 * lr
+        assert int(far.sum()) <= 0.03 * d.numel() and float(d.max()) < \
+            0.1 * lr, (k, int(far.sum()), float(d.max()))
+
+
+@pytest.mark.cuda
+def test_device_dataset_on_card_equals_cpu():
+    from isosurfacesuperresolution_tpu_torch.data.dataset import VideoDataset
+    from isosurfacesuperresolution_tpu_torch.train.device_data import (
+        DeviceVideoDataset)
+    _need_card()
+    rng = np.random.RandomState(0)
+    seqs = [{"low": rng.rand(4, 24, 24, 5).astype(np.float32),
+             "high": rng.rand(4, 96, 96, 6).astype(np.float32),
+             "flow": rng.rand(4, 24, 24, 2).astype(np.float32)}
+            for _ in range(3)]
+    samples = VideoDataset(seqs).collect_samples(
+        12, 8, 0.0, np.random.RandomState(1))
+    for store in (torch.float32, torch.bfloat16):
+        got = list(DeviceVideoDataset(seqs, store_dtype=store).batches(
+            samples, 4, 8, rng=np.random.RandomState(2)))
+        want = list(DeviceVideoDataset(seqs, store_dtype=store,
+                                       device="cpu").batches(
+            samples, 4, 8, rng=np.random.RandomState(2)))
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                assert x.is_cuda and x.dtype == torch.float32
+                assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.cuda
+def test_sn_wgan_gp_discriminator_step_card_matches_cpu():
+    """A discriminator step with spectrally normalized critics and the
+    gradient penalty (double backward on the card): loss and scores rel
+    1e-4, every critic gradient finite."""
+    _need_card()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, crit, TR = _train_setup(
+            dev, "l1:mask:1,adv:all:0.3,tgan:all:0.2", sn=True,
+            gan="wgan-gp")
+        d_step, g_step = TR.make_adv_train_steps(cfg, state.model, crit)
+        batch = _train_clip(50, dev)
+        _, dl, gs, ps = d_step(state, *batch, (0, 7))
+        _, gl = g_step(state, *batch)
+        out[dev] = [float(v) for v in (dl, gs, ps, gl)]
+        assert all(bool(torch.isfinite(p).all())
+                   for p in crit.discriminators.parameters())
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)

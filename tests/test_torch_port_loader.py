@@ -105,11 +105,11 @@ def test_from_params_npz_matches_jax():
 
 
 def test_orbax_run_dir_is_refused(tmp_path):
-    """A run dir whose weights are orbax checkpoints raises, naming the
-    slice that brings the port's own checkpoints."""
+    """A run dir whose weights are orbax checkpoints raises, naming orbax
+    (the port reads its own checkpoints/epoch_<N>.pt, not OCDBT trees)."""
     shutil.copy(os.path.join(RUN, "config.json"), tmp_path / "config.json")
     (tmp_path / "checkpoints" / "5").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="orbax checkpoints"):
         LoadedModel.from_run_dir(str(tmp_path), epoch=5, device="cpu")
 
 
