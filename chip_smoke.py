@@ -149,9 +149,33 @@ seconds; any failure ends the run with a non-zero exit code:
    `apps.main_video_unshaded.main` on the card (2 epochs on
    analytic:sphere, 2 small clips, in a temporary run dir under
    ``build/``), ``--restore`` for a third, and `LoadedModel.from_run_dir`
-   on the run dir and at ``epoch=3``, each giving a finite frame.
+   on the run dir and at ``epoch=3``, each giving a finite frame;
+32. shaded training at full width on phase 29's clips, shaded on the card
+   (`shade_clip`): 20 `make_shaded_train_step` steps of a fresh 10x64
+   EnhanceNet at 8 + 48 -> 3 channels at the `TrainConfig()` defaults
+   with ``l1:1,temp-l2:0.1`` (ms a step over steps 3-20, peak memory,
+   every loss finite), 3 steps with perceptual, texture and tgan added
+   (the seeded VGG, the untrained critic: ms a step, losses finite, the
+   network moved), card vs CPU on three steps of a small shaded net under
+   phase 31's bounds, and `apps.main_video_shaded.main` on the card (2
+   epochs on analytic:sphere, small clips, a run dir under ``build/``);
+33. the parallel layer in a one-process nccl group: the data-parallel
+   step at world 1 against the plain step (phase 31's bounds; the
+   all-reduce runs on the card), `render_cameras_sharded` of 8 orbit
+   cameras at 480x270 (8 B1 launches) bit for bit the 8 single renders,
+   and `render_gbuffer_sweep_sharded` at D = 1 on the 256^3 torus at
+   480x270, without and with its baked AO field, from a copy of the grid
+   on the host (the rank copies its slab to the card; the call's peak
+   device memory printed), against the single device's scan under
+   tests/test_sharded_sweep.py's bounds, its ms/frame beside B1's frame;
+   the group is destroyed at the end;
+34. the orbax run dirs artifacts/run00020/run00020 (step 23) and
+   artifacts/run00022/run00022 (step 70) through
+   `LoadedModel.from_run_dir` on the card (seconds to read each), their
+   parameters bit for bit a CPU read, and a main-path frame of each
+   (`InferencePipeline`, 3 frames, finite).
 
-In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-31 the launch
+In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-34 the launch
 counts are zeroed just before each run and read just after it; in phases
 4-23 frames 3 onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
 of kernel numbers, the card line, and last the device line.  Float32
@@ -1153,9 +1177,22 @@ def train_steps(step, state, batches, n: int, tag: str, counters: dict,
     return losses
 
 
-def training(model_cfg, grid, counters: dict, add) -> None:
+def params_close(card: dict, cpu: dict, lr: float) -> tuple:
+    """(largest |diff| / lr, largest share of a leaf beyond
+    MAX_TRAIN_PARAM x lr, within phase 31's bounds)."""
+    worst, share = 0.0, 0.0
+    for k, v in cpu.items():
+        d = (card[k].cpu() - v.cpu()).abs()
+        worst = max(worst, float(d.max()) / lr)
+        share = max(share, float((d > MAX_TRAIN_PARAM * lr).float().mean()))
+    return worst, share, worst < MAX_TRAIN_FAR and share <= \
+        MAX_TRAIN_FAR_SHARE
+
+
+def training(model_cfg, grid, counters: dict, add) -> list:
     """Phases 29-31: the trainer at full width on clips the kernels made,
-    adversarial and perceptual rounds, card vs CPU and the entry point."""
+    adversarial and perceptual rounds, card vs CPU and the entry point.
+    Returns phase 29's clips."""
     import shutil
     import tempfile
 
@@ -1299,7 +1336,7 @@ def training(model_cfg, grid, counters: dict, add) -> None:
                 raise RuntimeError(f"{tag}: non-finite losses or a network "
                                    f"that did not move")
             del state, crit, d_step, g_step, it
-        del dd, seqs
+        del dd
 
     with phase("31 card vs CPU, and the entry point"):
         scfg = Config(model=ModelConfig(num_residual_blocks=2,
@@ -1327,15 +1364,9 @@ def training(model_cfg, grid, counters: dict, add) -> None:
 
         card, cpu = three_steps("cuda"), three_steps("cpu")
         rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
-        lr = scfg.train.learning_rate
-        worst, worst_share = 0.0, 0.0
-        for k, v in cpu[1].items():
-            d = (card[1][k] - v).abs()
-            worst = max(worst, float(d.max()) / lr)
-            worst_share = max(worst_share, float(
-                (d > MAX_TRAIN_PARAM * lr).float().mean()))
-        ok = (rel <= MAX_TRAIN_LOSS_REL and worst < MAX_TRAIN_FAR
-              and worst_share <= MAX_TRAIN_FAR_SHARE)
+        worst, worst_share, close = params_close(
+            card[1], cpu[1], scfg.train.learning_rate)
+        ok = rel <= MAX_TRAIN_LOSS_REL and close
         log(f"[train card vs CPU] 3 Adam steps, 2 x 16 net, crop 16, 3 "
             f"frames: losses {card[0]} vs {cpu[0]} (max rel "
             f"{rel:.3g}, bound {MAX_TRAIN_LOSS_REL}); parameters: largest "
@@ -1392,6 +1423,371 @@ def training(model_cfg, grid, counters: dict, add) -> None:
                                    "wrong")
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    return seqs
+
+
+def shaded_training(model_cfg, seqs, counters: dict, add) -> None:
+    """Phase 32: the shaded trainer at full width on phase 29's clips,
+    perceptual, texture and tgan steps, card vs CPU and the entry point."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from isosurfacesuperresolution_tpu_torch.apps import main_video_shaded
+    from isosurfacesuperresolution_tpu_torch.config import (
+        Config, LossConfig, ModelConfig, TrainConfig)
+    from isosurfacesuperresolution_tpu_torch.data.dataset import (
+        DatasetFromSamples, VideoDataset)
+    from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import (
+        LoadedModel)
+    from isosurfacesuperresolution_tpu_torch.losses.lossnet import LossNet
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network)
+    from isosurfacesuperresolution_tpu_torch.train import trainer as TR
+    from isosurfacesuperresolution_tpu_torch.train import trainer_shaded as TS
+    from isosurfacesuperresolution_tpu_torch.train.device_data import (
+        DeviceVideoDataset)
+
+    shaded = dict(input_channels=8, output_channels=3,
+                  channel_mask=(0, 1, 2))
+    shading = TS.TRAINING_SHADING
+
+    def fresh(cfg, device, seed):
+        gen = torch.Generator().manual_seed(seed)
+        model = create_network(cfg.model, generator=gen).to(device)
+        crit = LossNet(cfg.loss, cfg.train.crop_size
+                       * cfg.model.upscale_factor, 8, 3,
+                       losses=cfg.loss.losses)
+        state = TS.create_shaded_train_state(cfg, model, crit,
+                                             TR.make_optimizer(cfg), gen)
+        return state, TS.make_shaded_train_step(cfg, model, crit)
+
+    with phase("32 shaded training at full width on kernel-made clips"):
+        cfg = Config(model=dataclasses.replace(model_cfg, **shaded),
+                     loss=LossConfig(losses="l1:1,temp-l2:0.1"),
+                     train=TrainConfig())
+        t = cfg.train
+        dd = DeviceVideoDataset(seqs, upscale_factor=4, device="cuda")
+        dataset = VideoDataset(seqs)
+        samples = dataset.collect_samples(t.samples, t.crop_size,
+                                          t.min_fill_rate,
+                                          np.random.RandomState(t.seed))
+        train_set = DatasetFromSamples(dataset, samples, t.crop_size, False,
+                                       t.test_fraction)
+
+        def batches(seed):
+            """Shaded batches: the clips' crops shaded on the card."""
+            rng = np.random.RandomState(seed)
+            while True:
+                for low, flow, high in dd.batches(
+                        train_set.samples, t.batch_size, t.crop_size,
+                        rng=rng):
+                    lo, hi = TS.shade_clip(low, high, shading)
+                    yield lo, flow, hi
+
+        state, step = fresh(cfg, "cuda", t.seed)
+        n_par = sum(p.numel() for p in state.model.parameters())
+        log(f"shaded EnhanceNet {cfg.model.num_residual_blocks} x "
+            f"{cfg.model.num_features}, {state.model.in_channels} -> 3 "
+            f"channels, fresh (seed {t.seed}), {n_par} parameters; batch "
+            f"{t.batch_size}, {t.num_frames} frames, crop {t.crop_size} -> "
+            f"{t.crop_size * 4}, losses {cfg.loss.losses}; "
+            f"card: {card_line()}")
+        losses = train_steps(step, state, batches(0), 20,
+                             "shaded train step", counters, add)
+        if state.step != 20:
+            raise RuntimeError(f"{state.step} shaded steps taken of 20")
+        del state, step
+
+        pcfg = cfg.replace(loss=LossConfig(
+            losses="l1:1,temp-l2:0.1,perceptual:0.1,texture:1,tgan:0.1"))
+        state, step = fresh(pcfg, "cuda", t.seed)
+        before = {k: v.clone() for k, v in state.model.state_dict().items()}
+        losses = train_steps(step, state, batches(1), 3,
+                             "shaded + perceptual, texture, tgan", counters,
+                             add)
+        moved = any(not torch.equal(v, before[k])
+                    for k, v in state.model.state_dict().items())
+        log(f"[shaded + perceptual, texture, tgan] the generator moved: "
+            f"{moved}; losses {losses}")
+        if not moved:
+            raise RuntimeError("shaded perceptual steps left the generator "
+                               "as it was")
+        del state, step, dd
+
+        small = Config(model=ModelConfig(num_residual_blocks=2,
+                                         num_features=16, **shaded),
+                       loss=LossConfig(losses="l1:1,temp-l2:0.1", padding=4),
+                       train=TrainConfig(batch_size=2, crop_size=16,
+                                         num_frames=3, learning_rate=1e-3))
+        rng = np.random.RandomState(32)
+        clips = []
+        for _ in range(3):
+            low = rng.rand(2, 3, 16, 16, 8).astype(np.float32)
+            low[..., 3] = low[..., 3] > 0.3
+            flow = (rng.rand(2, 3, 16, 16, 2).astype(np.float32) - 0.5) * 0.1
+            high = np.repeat(np.repeat(low[..., :3], 4, 2), 4, 3)
+            clips.append([torch.from_numpy(np.ascontiguousarray(a))
+                          for a in (low, flow, high)])
+
+        def three_steps(dev):
+            state, step = fresh(small, dev, 32)
+            ls = [float(step(state, *[a.to(dev) for a in c])[1])
+                  for c in clips]
+            return ls, state.model.state_dict()
+
+        card, cpu = three_steps("cuda"), three_steps("cpu")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+        worst, share, close = params_close(card[1], cpu[1],
+                                           small.train.learning_rate)
+        ok = rel <= MAX_TRAIN_LOSS_REL and close
+        log(f"[shaded train card vs CPU] 3 Adam steps, 2 x 16 net, crop 16,"
+            f" 3 frames: losses {card[0]} vs {cpu[0]} (max rel {rel:.3g}, "
+            f"bound {MAX_TRAIN_LOSS_REL}); parameters: largest |diff| "
+            f"{worst:.3g} x lr (bound {MAX_TRAIN_FAR}), largest share of a "
+            f"leaf beyond {MAX_TRAIN_PARAM} x lr {share:.4f} (bound "
+            f"{MAX_TRAIN_FAR_SHARE}): {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError("shaded training: card and CPU disagree")
+
+        work = Path(tempfile.mkdtemp(prefix="shaded_", dir=ROOT / "build"))
+        try:
+            argv = ["--dataset", "analytic:sphere", "--numberOfImages", "2",
+                    "--numFrames", "3", "--cropSize", "16", "--samples",
+                    "32", "--batchSize", "4", "--numResidualLayers", "2",
+                    "--numFeatures", "16", "--aoSamples", "16",
+                    "--lossBorderPadding", "4", "--epochs", "2",
+                    "--runDir", str(work / "runs"), "--device", "cuda"]
+            run, sec = counted(lambda: main_video_shaded.main(argv),
+                               "main_video_shaded 2 epochs", counters, {},
+                               add)
+            rows = [json.loads(line) for line in
+                    open(Path(run) / "scalars.jsonl")]
+            ckpts = sorted(os.listdir(Path(run) / "checkpoints"))
+            lm = LoadedModel.from_run_dir(run, device="cuda")
+            x = torch.rand((1, 16, 16, 8), generator=torch.Generator()
+                           .manual_seed(32)).cuda()
+            y = lm.inference(x, None, torch.zeros((1, 16, 16, 2),
+                                                  device="cuda"))
+            ok = (ckpts == ["epoch_1.pt", "epoch_2.pt"]
+                  and [r["step"] for r in rows] == [1, 2]
+                  and all(math.isfinite(r["value"]) for r in rows)
+                  and tuple(y.shape) == (1, 64, 64, 3)
+                  and bool(torch.isfinite(y).all()))
+            log(f"[main_video_shaded] 2 epochs in {sec:.1f} s; run dir "
+                f"{Path(run).name}: checkpoints {ckpts}, train/total_loss "
+                + ", ".join(f"{r['value']:.4g}" for r in rows)
+                + f"; LoadedModel from it: a finite {tuple(y.shape)} frame: "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError("the shaded entry point's run dir is "
+                                   "wrong")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def parallel_layer(grid, counters: dict, add, frame_cfg) -> None:
+    """Phase 33: the parallel layer in a one-process nccl group."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from isosurfacesuperresolution_tpu_torch.config import (
+        Config, LossConfig, ModelConfig, TrainConfig)
+    from isosurfacesuperresolution_tpu_torch.losses.lossnet import LossNet
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network)
+    from isosurfacesuperresolution_tpu_torch.parallel.mesh import (
+        make_mesh, make_sharded_train_step, render_cameras_sharded)
+    from isosurfacesuperresolution_tpu_torch.parallel.sharded_sweep import (
+        render_gbuffer_sweep_sharded)
+    from isosurfacesuperresolution_tpu_torch.render.ao_sweep import (
+        attach_baked_ao)
+    from isosurfacesuperresolution_tpu_torch.render.api import (
+        render_frame_gbuffer)
+    from isosurfacesuperresolution_tpu_torch.render.camera import (
+        CameraParams)
+    from isosurfacesuperresolution_tpu_torch.render.sweep import (
+        render_gbuffer_sweep)
+    from isosurfacesuperresolution_tpu_torch.train import trainer as TR
+    from isosurfacesuperresolution_tpu_torch.train import trainer_shaded as TS
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+
+    with phase("33 the parallel layer on one card (one-process nccl "
+               "group)"):
+        rdv = Path(tempfile.mkdtemp(prefix="nccl_", dir=ROOT / "build"))
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{rdv}/rdv",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            if dist.get_backend() != "nccl":
+                raise RuntimeError(f"backend {dist.get_backend()}, not nccl")
+            mesh = make_mesh(1)
+            cfg = Config(model=ModelConfig(num_residual_blocks=2,
+                                           num_features=16, input_channels=8,
+                                           output_channels=3,
+                                           channel_mask=(0, 1, 2)),
+                         loss=LossConfig(losses="l1:1,temp-l2:0.1",
+                                         padding=4),
+                         train=TrainConfig(batch_size=2, crop_size=16,
+                                           num_frames=3, learning_rate=1e-3))
+            rng = np.random.RandomState(33)
+            low = rng.rand(2, 3, 16, 16, 8).astype(np.float32)
+            low[..., 3] = low[..., 3] > 0.3
+            flow = (rng.rand(2, 3, 16, 16, 2).astype(np.float32) - 0.5) * 0.1
+            high = np.repeat(np.repeat(low[..., :3], 4, 2), 4, 3)
+            batch = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                     for a in (low, flow, high)]
+            runs = []
+            for sharded in (False, True):
+                gen = torch.Generator().manual_seed(33)
+                model = create_network(cfg.model, generator=gen).cuda()
+                crit = LossNet(cfg.loss, 64, 8, 3, losses=cfg.loss.losses)
+                state = TS.create_shaded_train_state(
+                    cfg, model, crit, TR.make_optimizer(cfg), gen)
+                step = TS.make_shaded_train_step(cfg, model, crit)
+                if sharded:
+                    step = make_sharded_train_step(step, mesh)
+                ls = [float(step(state, *batch)[1]) for _ in range(2)]
+                runs.append((ls, model.state_dict()))
+            rel = max(abs(a - b) / abs(b) for a, b in zip(runs[1][0],
+                                                          runs[0][0]))
+            worst, share, close = params_close(runs[1][1], runs[0][1], 1e-3)
+            ok = rel <= MAX_TRAIN_LOSS_REL and close
+            log(f"[sharded step, world 1] 2 shaded steps: losses "
+                f"{runs[1][0]} vs the plain step's {runs[0][0]} (max rel "
+                f"{rel:.3g}); parameters: largest |diff| {worst:.3g} x lr, "
+                f"share beyond {MAX_TRAIN_PARAM} x lr {share:.4f}: "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError("the world-1 sharded step differs from "
+                                   "the plain step")
+
+            cams = [cam_at(2 * math.pi * i / 8) for i in range(8)]
+            eyes = torch.stack([c.eye for c in cams])
+            looks = torch.stack([c.look_at_pt for c in cams])
+            ups = torch.stack([c.up for c in cams])
+            render_cameras_sharded(grid, eyes, looks, ups, frame_cfg, mesh)
+            frames, sec = counted(lambda: render_cameras_sharded(
+                grid, eyes, looks, ups, frame_cfg, mesh),
+                "render_cameras_sharded 8 cameras", counters,
+                {"sweep_march": 8}, add)
+            single = [render_frame_gbuffer(grid, c, c, frame_cfg)
+                      for c in cams]
+            equal = all(bool(torch.equal(frames[i], single[i]))
+                        for i in range(8))
+            log(f"[render_cameras_sharded] 8 orbit cameras at 480x270: "
+                f"{tuple(frames.shape)} in {sec * 1e3:.1f} ms; bit for bit "
+                f"the 8 single renders: {equal}")
+            if not equal or tuple(frames.shape) != (8, 270, 480, 12):
+                raise RuntimeError("render_cameras_sharded differs from "
+                                   "single renders")
+            del frames, single
+
+            torus = analytic.torus_volume(256, device="cuda")
+            torus_ao = attach_baked_ao(torus, 0.5, 0.1)
+            cam = CameraParams.create((0.3, 0.8, -1.7))
+            zmesh = make_mesh(1, axis_name="z")
+            scan_cfg = frame_cfg.replace(renderer="sweep")
+            for tag, g, rcfg in (
+                    ("no AO", torus, scan_cfg),
+                    ("baked AO", torus_ao,
+                     scan_cfg.replace(ao_samples=64, ao_mode="volume"))):
+                # the slab sweep reads its grid from the host
+                host_g = dataclasses.replace(g, **{
+                    f: getattr(g, f).cpu() for f in (
+                        "values", "brick_min", "brick_max", "ao_sh")
+                    if getattr(g, f) is not None})
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                got, sec = counted(lambda: render_gbuffer_sweep_sharded(
+                    host_g, cam, cam, rcfg, zmesh),
+                    f"sharded sweep D=1 {tag}", counters, {}, add)
+                peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+                if got.device.type != "cuda":
+                    raise RuntimeError("the slab sweep's frame is not on "
+                                       "the card")
+                del host_g
+                ref, ref_sec = counted(lambda: render_gbuffer_sweep(
+                    g, cam, cam, rcfg), f"single scan {tag}", counters, {},
+                    add)
+                b1_cfg = rcfg.replace(renderer="sweep_pallas")
+                b1_ms = time_cuda(lambda: render_gbuffer_sweep(
+                    g, cam, cam, b1_cfg), 5)
+                got, ref = got.cpu().numpy(), ref.cpu().numpy()
+                mism = float(np.mean(got[..., 3] != ref[..., 3]))
+                both = (got[..., 3] > 0.5) & (ref[..., 3] > 0.5)
+                diffs = {ch: float(np.abs(got[..., ch] - ref[..., ch])[
+                    both].max()) for ch in (4, 5, 6, 7, 10)}
+                ok = (mism < 0.01 and both.sum() > 1000 and diffs[7] < 1e-3
+                      and max(diffs[c] for c in (4, 5, 6)) < 5e-3
+                      and np.isfinite(got).all())
+                if rcfg.ao_samples:
+                    ok = ok and float(np.quantile(np.abs(
+                        got[..., 10] - ref[..., 10])[both], 0.95)) < 0.02
+                log(f"[sharded sweep D=1 {tag}] 256^3 torus, 480x270, "
+                    f"grid on the host: {sec * 1e3:.1f} ms/frame, peak "
+                    f"device memory {peak_mb:.1f} MiB (the single scan "
+                    f"{ref_sec * 1e3:.1f}, B1's G-buffer frame "
+                    f"{b1_ms:.2f}); mask mismatch {mism:.4f} (< 0.01) over "
+                    f"{int(both.sum())} hits, max |diff| depth "
+                    f"{diffs[7]:.3g} (< 1e-3), normals "
+                    f"{max(diffs[c] for c in (4, 5, 6)):.3g} (< 5e-3), AO "
+                    f"{diffs[10]:.3g}; bit for bit the scan: "
+                    f"{bool(np.array_equal(got, ref))}: "
+                    f"{'ok' if ok else 'FAILED'}")
+                if not ok:
+                    raise RuntimeError(f"sharded sweep {tag} disagrees with "
+                                       f"the single-device scan")
+            del torus, torus_ao
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(rdv, ignore_errors=True)
+
+
+def orbax_runs(grid, counters: dict, add, frame_cfg) -> None:
+    """Phase 34: the orbax run dirs through `LoadedModel` on the card."""
+    import torch
+    from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import (
+        LoadedModel)
+    from isosurfacesuperresolution_tpu_torch.infer.pipeline import (
+        InferencePipeline)
+
+    with phase("34 orbax run dirs through LoadedModel"):
+        for name, step in (("run00020", 23), ("run00022", 70)):
+            path = ROOT / "artifacts" / name / name
+            t = time.time()
+            lm = LoadedModel.from_run_dir(str(path), device="cuda")
+            torch.cuda.synchronize()
+            sec = time.time() - t
+            t = time.time()
+            host = LoadedModel.from_run_dir(str(path), device="cpu")
+            host_sec = time.time() - t
+            want = host.model.state_dict()
+            equal = all(bool(torch.equal(v.cpu(), want[k]))
+                        for k, v in lm.model.state_dict().items())
+            pipe = InferencePipeline(lm.model, lm.cfg, frame_cfg,
+                                     device="cuda")
+            rgb, launches = drive(lambda i: pipe.frame(grid,
+                                                       cam_at(0.03 * i)),
+                                  3, f"orbax {name} step {step}", counters)
+            check_rgb(rgb, pipe.state.prev_high[..., 0:16] > 0.0,
+                      (1080, 1920, 3))
+            expect(launches, {"sweep_march": 3}, f"orbax {name}")
+            add(launches)
+            log(f"[orbax {name}] step {step} read and loaded on the card in "
+                f"{sec:.3f} s (on the CPU {host_sec:.3f} s); parameters bit "
+                f"for bit the CPU read: {equal}; 3 main-path frames, "
+                f"finite")
+            if not equal:
+                raise RuntimeError(f"{name}: the card's parameters differ "
+                                   f"from the CPU read")
+            del pipe, lm, host
 
 
 def main() -> int:
@@ -2584,10 +2980,14 @@ def main() -> int:
             del net, x, y
 
     reference_renderers(grid, counters, add, frame_cfg)
-    training(lm.cfg.model, grid, counters, add)
+    seqs = training(lm.cfg.model, grid, counters, add)
+    shaded_training(lm.cfg.model, seqs, counters, add)
+    del seqs
+    parallel_layer(grid, counters, add, frame_cfg)
+    orbax_runs(grid, counters, add, frame_cfg)
 
     log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
-        f"18, 19, 21, 22 and 25-31: {path_launches}")
+        f"18, 19, 21, 22 and 25-34: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),

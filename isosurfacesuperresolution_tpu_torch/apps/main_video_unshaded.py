@@ -14,8 +14,17 @@ line: tag, value, step); ``--imageEvery`` panels to
 ``<run_dir>/images/<tag>_<epoch>.npy``; checkpoints to
 ``<run_dir>/checkpoints/epoch_<N>.pt`` and the generator to
 ``<run_dir>/params.npz`` (JAX's format).  RAW/.dat volumes and
-descriptor files need the volume importers of slice 10, and
-``--dataParallel`` > 1 the next slice's ``parallel/``: both raise.
+descriptor files need the volume importers of slice 10 and raise.
+
+``--dataParallel N`` > 1 trains on N devices, one process each
+(`parallel.mesh.make_sharded_train_step`: every process runs its 1/N of
+each batch, one all-reduce averages the loss and gradients).  The
+command spawns its N workers itself (rendezvous in a temporary
+directory).  As in JAX, data parallelism batches on the host, and only
+the plain step is sharded: with ``--advTraining`` the adversarial steps
+run unsharded, once, on process 0, and the other processes idle, so that
+mode gains nothing from N devices.  Process 0 writes the run dir, the
+scalars and the checkpoints.
 
 Usage:
   python -m isosurfacesuperresolution_tpu_torch.apps.main_video_unshaded \\
@@ -28,8 +37,10 @@ import argparse
 import json
 import os
 import signal
+import sys
+import tempfile
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -120,7 +131,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "disables)")
     p.add_argument("--checkpointEvery", type=int, default=1)
     p.add_argument("--dataParallel", type=int, default=1,
-                   help="devices on the batch axis (1 in this slice)")
+                   help="devices on the batch axis, one process each")
     p.add_argument("--dataDtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage type of the device-resident dataset")
@@ -336,12 +347,62 @@ def _log_test_images(writer, cfg, predict_clip, batch, epoch):
     writer.add_image("test/residual", panel(residual * 4.0), epoch)
 
 
+def _data_parallel_worker(rank: int, argv, world: int, init_method: str,
+                          run_dir: str) -> None:
+    """One of the processes `main` spawns for ``--dataParallel``."""
+    import torch.distributed as dist
+
+    from isosurfacesuperresolution_tpu_torch.parallel.multihost import (
+        initialize_distributed)
+    args = build_parser().parse_args(argv)
+    os.environ["LOCAL_RANK"] = str(rank)
+    initialize_distributed(init_method, world, rank, _requested_device(args))
+    try:
+        train(args, make_config(args), run_dir)
+    finally:
+        dist.destroy_process_group()
+
+
+def _requested_device(args):
+    import torch
+    return torch.device(args.device or "cuda")
+
+
 def main(argv=None) -> str:
-    """Train; returns the run dir."""
+    """Train; returns the run dir.  With ``--dataParallel N`` > 1, spawns
+    N processes and waits for them."""
     args = build_parser().parse_args(argv)
     cfg = make_config(args)
+    n = cfg.parallel.data_parallel
+    if n > 1:
+        import torch
+        import torch.multiprocessing as mp
 
+        from isosurfacesuperresolution_tpu_torch.device import (
+            resolve_device)
+        from isosurfacesuperresolution_tpu_torch.train.checkpoint import (
+            next_run_dir)
+        dev = resolve_device(args.device)
+        if dev.type == "cuda" and torch.cuda.device_count() < n:
+            raise RuntimeError(f"--dataParallel {n} needs {n} cards; this "
+                               f"machine has {torch.cuda.device_count()}")
+        run_dir = next_run_dir(cfg.train.run_dir_base)
+        with tempfile.TemporaryDirectory() as rdv:
+            mp.start_processes(
+                _data_parallel_worker,
+                args=(list(sys.argv[1:] if argv is None else argv), n,
+                      "file://" + os.path.join(rdv, "rendezvous"), run_dir),
+                nprocs=n, join=True, start_method="spawn")
+        return run_dir
+    return train(args, cfg)
+
+
+def train(args, cfg, run_dir: Optional[str] = None) -> str:
+    """The training loop of `main` in this process; returns the run dir.
+    Under ``--dataParallel`` this process is one rank of the group
+    `_data_parallel_worker` set up, and ``run_dir`` is the group's."""
     import torch
+    import torch.distributed as dist
 
     from isosurfacesuperresolution_tpu_torch.data.dataset import (
         DatasetFromSamples, VideoDataset, load_reference_npy_dir)
@@ -361,12 +422,17 @@ def main(argv=None) -> str:
         set_learning_rate)
     from isosurfacesuperresolution_tpu_torch.utils import jax_prng
 
-    if cfg.parallel.data_parallel > 1:
-        raise NotImplementedError(
-            "--dataParallel > 1 needs the port's parallel/ (mesh, "
-            "multihost), which comes with the next slice (ROADMAP.md, "
-            "queue A)")
-    device = resolve_device(args.device)
+    n_dp = cfg.parallel.data_parallel
+    rank = 0
+    if n_dp > 1:
+        rank = dist.get_rank()
+        device = _requested_device(args)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        resolve_device(device)
+    else:
+        device = resolve_device(args.device)
+    lead = rank == 0
     t = cfg.train
     rng = np.random.RandomState(t.seed)
 
@@ -396,7 +462,7 @@ def main(argv=None) -> str:
           f"test crops: {len(test_set)}")
 
     device_data = None
-    if not t.augment and not args.hostData:
+    if not t.augment and not args.hostData and n_dp <= 1:
         dd = DeviceVideoDataset(sequences,
                                 upscale_factor=cfg.model.upscale_factor,
                                 store_dtype=getattr(torch, args.dataDtype),
@@ -425,12 +491,29 @@ def main(argv=None) -> str:
         train_step = make_train_step(cfg, model, criterion)
     eval_step = make_eval_step(cfg, model, criterion)
     predict_clip = make_predict_clip(cfg, model)
+    sync_stop = None
+    if n_dp > 1:
+        from isosurfacesuperresolution_tpu_torch.parallel.mesh import (
+            make_mesh, make_sharded_train_step)
+        mesh = make_mesh(n_dp)
+        if not t.adv_training:
+            train_step = make_sharded_train_step(train_step, mesh)
 
-    run_dir = next_run_dir(t.run_dir_base)
-    write_info(run_dir, cfg)
-    ckpt = CheckpointManager(run_dir)
-    writer = ScalarWriter(run_dir)
-    print("run dir:", run_dir)
+        def sync_stop(flag: bool) -> bool:
+            """Whether any process was asked to stop (one all-reduce)."""
+            x = torch.tensor([float(flag)], device=device)
+            dist.all_reduce(x, op=dist.ReduceOp.MAX)
+            return bool(x.item())
+
+    else:
+        run_dir = next_run_dir(t.run_dir_base)
+    if lead:
+        write_info(run_dir, cfg)
+        ckpt = CheckpointManager(run_dir)
+        writer = ScalarWriter(run_dir)
+        print("run dir:", run_dir)
+    else:
+        ckpt = writer = None
 
     start_epoch = 1
     if args.restore:
@@ -508,20 +591,27 @@ def main(argv=None) -> str:
                 batch_iter = host_batches(train_set.batches(t.batch_size,
                                                             rng=rng))
             for low, flow, high in batch_iter:
+                if sync_stop is not None:
+                    if sync_stop(stop["sig"] is not None):
+                        stop["sig"] = stop["sig"] or signal.SIGTERM
                 if stop["sig"] is not None:
                     break
                 if t.adv_training:
+                    if not lead:        # unsharded: process 0 alone
+                        continue
                     for _ in range(t.discr_steps):
                         state, d_loss, gt_s, pred_s = d_step(
                             state, low, flow, high,
                             jax_prng.prng_key(rng.randint(1 << 31)))
                     for _ in range(t.gen_steps):
                         state, loss = g_step(state, low, flow, high)
-                    writer.add_scalar("train/discr_loss", float(d_loss),
-                                      epoch)
-                    writer.add_scalar("train/gt_score", float(gt_s), epoch)
-                    writer.add_scalar("train/pred_score", float(pred_s),
-                                      epoch)
+                    if lead:
+                        writer.add_scalar("train/discr_loss", float(d_loss),
+                                          epoch)
+                        writer.add_scalar("train/gt_score", float(gt_s),
+                                          epoch)
+                        writer.add_scalar("train/pred_score", float(pred_s),
+                                          epoch)
                     lossf = float(loss)
                 else:
                     verdict.update(epoch=epoch, batch=n_batches)
@@ -533,13 +623,17 @@ def main(argv=None) -> str:
                 epoch_loss += lossf
                 n_batches += 1
             if stop["sig"] is not None:
-                ckpt.save(epoch, state)
-                save_params_npz(os.path.join(run_dir, "params.npz"), model)
-                print(f"preempted at epoch {epoch} ({n_batches} batches): "
-                      f"checkpoint + params.npz saved to {run_dir}",
-                      flush=True)
+                if lead:
+                    ckpt.save(epoch, state)
+                    save_params_npz(os.path.join(run_dir, "params.npz"),
+                                    model)
+                    print(f"preempted at epoch {epoch} ({n_batches} "
+                          f"batches): checkpoint + params.npz saved to "
+                          f"{run_dir}", flush=True)
                 break
             epoch_loss /= max(n_batches, 1) * t.num_frames
+            if not lead:
+                continue
             writer.add_scalar("train/total_loss", epoch_loss, epoch)
             writer.add_scalar("train/lr", lr, epoch)
 
@@ -573,11 +667,14 @@ def main(argv=None) -> str:
             if epoch % t.checkpoint_every == 0:
                 ckpt.save(epoch, state)
                 save_params_npz(os.path.join(run_dir, "params.npz"), model)
-        save_params_npz(os.path.join(run_dir, "params.npz"), model)
+        if lead:
+            save_params_npz(os.path.join(run_dir, "params.npz"), model)
     finally:
         signal.signal(signal.SIGTERM, old_handler)
-        writer.close()
-    print("done; checkpoints in", run_dir)
+        if writer is not None:
+            writer.close()
+    if lead:
+        print("done; checkpoints in", run_dir)
     return run_dir
 
 

@@ -4,10 +4,10 @@ Counterpart of the JAX package's `infer/loadedmodel.py`.  A run directory
 carries ``config.json`` (its ``model.*`` and ``train.*`` sections) and
 ``params.npz`` (the Flax parameters, read with numpy and mapped by
 `models.generators.params_from_flax`), and, when the port's trainer
-wrote it, ``checkpoints/epoch_<N>.pt`` (`train/checkpoint.py`); a
-``.pth`` path goes to the reference-checkpoint importer
-(`infer/torch_import.py`).  Orbax checkpoints (``checkpoints/<epoch>/``)
-are not read (ROADMAP.md, queue A).
+wrote it, ``checkpoints/epoch_<N>.pt`` (`train/checkpoint.py`); JAX's
+orbax checkpoints (``checkpoints/<step>/``) are read without orbax
+(`train/ocdbt.py`); a ``.pth`` path goes to the reference-checkpoint
+importer (`infer/torch_import.py`).
 """
 
 from __future__ import annotations
@@ -61,10 +61,14 @@ class LoadedModel:
                      device: DeviceLike = None) -> "LoadedModel":
         """``fast=True`` builds the generator with ``fused_upsample`` (the
         state dict is the same, so any checkpoint loads either way).
-        ``epoch`` selects the port's checkpoint ``checkpoints/epoch_<N>.pt``;
-        without it the run dir's ``params.npz`` is read (the latest
-        checkpoint where there is none).  A ``.pth`` file goes to
-        `torch_import.load_reference_pth`."""
+
+        The weights, by JAX's rule: a run dir with orbax steps in
+        ``checkpoints/`` loads the generator of step ``epoch`` (the newest
+        without one); a run dir without them loads ``params.npz`` and
+        ignores ``epoch``, as JAX does, unless the port's own
+        ``checkpoints/epoch_<N>.pt`` exists for it (JAX never sees those);
+        a run dir with neither loads its newest ``epoch_<N>.pt``.  A
+        ``.pth`` file goes to `torch_import.load_reference_pth`."""
         dev = resolve_device(device)
         if run_dir.endswith(".pth") and os.path.isfile(run_dir):
             from isosurfacesuperresolution_tpu_torch.infer.torch_import \
@@ -75,11 +79,14 @@ class LoadedModel:
             cfg = cfg.replace(model=dataclasses.replace(
                 cfg.model, fused_upsample=True))
         from isosurfacesuperresolution_tpu_torch.train.checkpoint import (
-            CheckpointManager, refuse_orbax)
+            CheckpointManager)
+        from isosurfacesuperresolution_tpu_torch.train.ocdbt import (
+            orbax_steps)
         ckpt = os.path.join(run_dir, "checkpoints")
-        refuse_orbax(ckpt)
         npz = os.path.join(run_dir, "params.npz")
-        if epoch is None and os.path.exists(npz):
+        own = epoch is not None and os.path.exists(
+            os.path.join(ckpt, f"epoch_{epoch}.pt"))
+        if not own and not orbax_steps(ckpt) and os.path.exists(npz):
             return cls.from_params_npz(npz, cfg, dev)
         if not os.path.isdir(ckpt):
             raise FileNotFoundError(f"{run_dir}: no params.npz and no "

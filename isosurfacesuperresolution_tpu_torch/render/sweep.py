@@ -350,7 +350,9 @@ def scan_march(vol_zxy: torch.Tensor, meta: torch.Tensor,
                s_grid: torch.Tensor, t_grid: torch.Tensor, Sn: int, Tn: int,
                dtype: torch.dtype, scale: float, offset: float,
                iso_stored: float, ao_zcxy: "torch.Tensor | None" = None,
-               ao_scale=1.0, ao_offset=0.0) -> Tuple[torch.Tensor, ...]:
+               ao_scale=1.0, ao_offset=0.0, first: int = 0,
+               entry: "torch.Tensor | None" = None
+               ) -> Tuple[torch.Tensor, ...]:
     """The JAX package's slice scan (``renderer="sweep"``) over the K
     slice planes, in stock PyTorch ops on the tensors' device.
 
@@ -363,7 +365,12 @@ def scan_march(vol_zxy: torch.Tensor, meta: torch.Tensor,
     any ``ao_scale``/``ao_offset``) is lerped and resampled in float32
     with the dequant after the lerp.  Returns the march's five outputs and
     sh (4, Sn, Tn) (zeros without a field).  An oracle path: the loop is
-    steered from the host."""
+    steered from the host.
+
+    A slab of the planes (`parallel.sharded_sweep`): ``first`` is the
+    global index of ``meta``'s first row (hits report global indices) and
+    ``entry`` the (8,) row of the plane before it, whose F the scan
+    starts from (zeros without one, as at the volume's first plane)."""
     Z, X, Y = vol_zxy.shape
     dev = vol_zxy.device
     rows = meta.cpu().tolist()
@@ -378,7 +385,9 @@ def scan_march(vol_zxy: torch.Tensor, meta: torch.Tensor,
     if ao_zcxy is not None:
         a_scale = torch.tensor(per_channel(ao_scale), device=dev)
         a_off = torch.tensor(per_channel(ao_offset), device=dev)
-    for k, (_, lam, zf, fz, valid, iso, eye_s, eye_t) in enumerate(rows):
+    def plane(row):
+        """(F, sh, valid, iso) of one slice plane."""
+        _, lam, zf, fz, valid, iso, eye_s, eye_t = row
         zf = int(zf)
         valid = valid > 0.5
         F_k, sh_k = zero, zero4
@@ -397,11 +406,17 @@ def scan_march(vol_zxy: torch.Tensor, meta: torch.Tensor,
                        + fz * ao_zcxy[zf + 1].to(_F32))
                 asl = asl * a_scale[:, None, None] + a_off[:, None, None]
                 sh_k = (wx @ asl) @ wy.t()                  # (4, Sn, Tn)
+        return F_k, sh_k, valid, iso
+
+    if entry is not None:
+        fm1 = plane(entry.tolist())[0]
+    for k, row in enumerate(rows):
+        F_k, sh_k, valid, iso = plane(row)
         crossing = (m_hit < 0.0) & (F_k >= iso) & valid
         d = F_k - fm1
         denom = torch.where(torch.abs(d) > 1e-12, d, 1e-12)
         new_frac = torch.clamp((iso - fm1) / denom, 0.0, 1.0)
-        m_hit = torch.where(crossing, float(k), m_hit)
+        m_hit = torch.where(crossing, float(first + k), m_hit)
         frac = torch.where(crossing, new_frac, frac)
         g_s = torch.where(crossing, 0.5 * (torch.roll(fm1, -1, 0)
                                            - torch.roll(fm1, 1, 0)), g_s)
@@ -462,13 +477,17 @@ def _march(grid: AnyGrid, plan: SweepPlan, cfg: RenderConfig,
     return (*outs[:5], sh, args["s_grid"], args["t_grid"])
 
 
-def _sweep(grid: AnyGrid, plan: SweepPlan, cam: CameraParams,
-           cam_flow: CameraParams, cfg: RenderConfig,
-           rp: RenderParams, use_ao_field: bool) -> torch.Tensor:
-    dev = grid.device
+def finish_sweep(grid: AnyGrid, plan: SweepPlan, cam: CameraParams,
+                 cam_flow: CameraParams, cfg: RenderConfig,
+                 rp: RenderParams, use_ao_field: bool, marched
+                 ) -> torch.Tensor:
+    """The G-buffer from a march's outputs ``marched`` = (m_hit, frac,
+    g_s, g_t, g_z, sh, s_grid, t_grid): hit points and normals by the
+    chain rule through the shear, AO, shading, the homography warp and
+    the post-warp fixups, on the march's device."""
     W, H = cfg.width, cfg.height
-    m_hit, frac, g_s, g_t, g_z, sh, s_dev, t_dev = _march(
-        grid, plan, cfg, rp, use_ao_field)
+    m_hit, frac, g_s, g_t, g_z, sh, s_dev, t_dev = marched
+    dev = m_hit.device
     found = m_hit >= 0.0
     perm, zss, Z, flip = plan.perm, plan.zss, plan.Z, plan.flip
     sigma = -1.0 if flip else 1.0
@@ -595,5 +614,6 @@ def render_gbuffer_sweep(grid: AnyGrid, cam: CameraParams,
                          "with grid.to_brick_grid()")
     if rp is None:
         rp = RenderParams.from_config(cfg)
-    return _sweep(grid, plan_sweep(grid, cam, cfg, rp), cam, cam_flow, cfg,
-                  rp, use_ao_field)
+    plan = plan_sweep(grid, cam, cfg, rp)
+    return finish_sweep(grid, plan, cam, cam_flow, cfg, rp, use_ao_field,
+                        _march(grid, plan, cfg, rp, use_ao_field))

@@ -10,9 +10,11 @@ The full train state (generator, optimizer states, discriminators, step,
 epoch) is the port's own format: ``torch.save`` to
 ``<run_dir>/checkpoints/epoch_<N>.pt``.  A file, not a digit-named
 directory, so JAX's loader does not take the run dir for an orbax one and
-reads its ``params.npz``.  Orbax checkpoints (``checkpoints/<N>/``) are
-refused: reading OCDBT without orbax and tensorstore is a later item
-(ROADMAP.md, queue A).
+reads its ``params.npz``.  JAX's orbax checkpoints (``checkpoints/<N>/``)
+are read without orbax (`train/ocdbt.py`): the generator's parameters
+(``--pretrained``, `infer/loadedmodel.LoadedModel`) and the
+discriminators' (``--pretrainedDiscr``); a full-state restore reads the
+port's own files.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from torch import nn
 from isosurfacesuperresolution_tpu_torch.config import Config, flatten_config
 from isosurfacesuperresolution_tpu_torch.models.generators import (
     flax_from_params, params_from_flax)
+from isosurfacesuperresolution_tpu_torch.train.ocdbt import (
+    orbax_steps, orbax_tree_paths, read_orbax_generator, read_orbax_step)
 
 _EPOCH_FILE = re.compile(r"^epoch_(\d+)\.pt$")
 
@@ -88,25 +92,16 @@ def load_params_npz(path: str, model: nn.Module) -> nn.Module:
     return model
 
 
-def refuse_orbax(directory: str) -> None:
-    """Raise if ``directory`` holds orbax's digit-named checkpoints."""
-    if os.path.isdir(directory) and any(n.isdigit()
-                                        for n in os.listdir(directory)):
-        raise NotImplementedError(
-            f"{directory}: orbax checkpoints (checkpoints/<epoch>/) are not "
-            "read by the port; reading OCDBT without orbax and tensorstore "
-            "is a later item (ROADMAP.md, queue A).  Run dirs with "
-            "config.json and params.npz load, as do the port's "
-            "checkpoints/epoch_<N>.pt.")
-
-
 class CheckpointManager:
     """Epoch-numbered checkpoints of the full train state,
-    ``checkpoints/epoch_<N>.pt``; ``max_to_keep`` keeps the newest."""
+    ``checkpoints/epoch_<N>.pt``; ``max_to_keep`` keeps the newest.  The
+    orbax steps JAX wrote in the same directory (``checkpoints/<N>/``)
+    are read for the generator's and the discriminators' parameters; an
+    epoch given to a restore names the port's file when there is one,
+    else the orbax step, and no epoch the newest of either."""
 
     def __init__(self, run_dir: str, max_to_keep: Optional[int] = None):
         self.directory = os.path.abspath(os.path.join(run_dir, "checkpoints"))
-        refuse_orbax(self.directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
 
@@ -139,13 +134,28 @@ class CheckpointManager:
                 os.remove(self.path(old))
 
     def latest_epoch(self) -> Optional[int]:
-        epochs = self.epochs()
-        return epochs[-1] if epochs else None
+        epochs = self.epochs() + orbax_steps(self.directory)
+        return max(epochs) if epochs else None
 
-    def _load(self, epoch: Optional[int]) -> Tuple[dict, int]:
+    def _is_orbax(self, epoch: Optional[int]) -> Tuple[bool, int]:
+        """(whether ``epoch`` is read from an orbax step, the epoch)."""
         epoch = epoch if epoch is not None else self.latest_epoch()
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        own = os.path.exists(self.path(epoch))
+        if not own and epoch not in orbax_steps(self.directory):
+            raise FileNotFoundError(f"{self.directory}: no checkpoint of "
+                                    f"epoch {epoch}")
+        return not own, epoch
+
+    def _load(self, epoch: Optional[int]) -> Tuple[dict, int]:
+        orbax, epoch = self._is_orbax(epoch)
+        if orbax:
+            raise NotImplementedError(
+                f"{self.directory}/{epoch}: an orbax step restores the "
+                "generator's and the discriminators' parameters "
+                "(--pretrained, --pretrainedDiscr); a full-state restore "
+                "reads the port's checkpoints/epoch_<N>.pt")
         return torch.load(self.path(epoch), map_location="cpu",
                           weights_only=True), epoch
 
@@ -153,6 +163,11 @@ class CheckpointManager:
                        ) -> Tuple[nn.Module, int]:
         """Load ONLY the generator's parameters into ``model`` (the
         reference's ``--pretrained``)."""
+        orbax, epoch = self._is_orbax(epoch)
+        if orbax:
+            flat, _ = read_orbax_generator(self.directory, epoch)
+            model.load_state_dict(params_from_flax(flat, _model_cfg(model)))
+            return model, epoch
         payload, epoch = self._load(epoch)
         model.load_state_dict(payload["params"])
         return model, epoch
@@ -162,6 +177,18 @@ class CheckpointManager:
                              ) -> Tuple[nn.Module, int]:
         """Load ONLY the discriminators' parameters (the reference's
         ``--pretrainedDiscr``)."""
+        orbax, epoch = self._is_orbax(epoch)
+        if orbax:
+            step_dir = os.path.join(self.directory, str(epoch))
+            paths = orbax_tree_paths(step_dir)
+            per_name: Dict[str, dict] = {}
+            for name, arr in read_orbax_step(step_dir,
+                                             "discr_params.").items():
+                path = paths[name]
+                per_name.setdefault(path[1], {})["/".join(path[2:])] = arr
+            for name, flat in per_name.items():
+                discriminators[name].load_state_dict(params_from_flax(flat))
+            return discriminators, epoch
         payload, epoch = self._load(epoch)
         discriminators.load_state_dict(payload["discr_params"])
         return discriminators, epoch

@@ -46,8 +46,8 @@ from isosurfacesuperresolution_tpu_torch.utils import jax_prng
 
 __all__ = ["TrainState", "clamp_output", "make_optimizer",
            "set_learning_rate", "epoch_learning_rate", "make_clip_loss",
-           "make_train_step", "make_predict_clip", "make_eval_step",
-           "make_adv_train_steps", "create_train_state"]
+           "optimizer_step", "make_train_step", "make_predict_clip",
+           "make_eval_step", "make_adv_train_steps", "create_train_state"]
 
 
 @dataclass
@@ -178,28 +178,41 @@ def _generator_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
+def optimizer_step(state: TrainState, loss: torch.Tensor, grads,
+                   accept: Optional[Callable] = None,
+                   reduce: Optional[Callable] = None):
+    """The update of a train step from its loss and gradients: ``reduce``
+    (the data-parallel all-reduce, `parallel.mesh`) first, then the
+    spike guard ``accept(loss)``, then ``state.optimizer``'s step ->
+    (state, loss)."""
+    if reduce is not None:
+        loss, grads = reduce(loss, grads)
+    if accept is not None and not accept(loss):
+        return state, loss
+    state.optimizer.step(grads)
+    state.step += 1
+    return state, loss
+
+
 def make_train_step(cfg: Config, model: nn.Module,
                     criterion: LossNetUnshaded) -> Callable:
-    """``train_step(state, low, flow, high, accept=None) -> (state,
-    loss)``: one BPTT step of the generator (in place), by
-    ``state.optimizer``.  ``accept(loss)``, when given, is asked before
-    the optimizer step (the trainer's spike guard); on False the
-    parameters stay as they were.  ``loss`` is a 0-dim tensor on the
-    clip's device."""
+    """``train_step(state, low, flow, high, accept=None, reduce=None) ->
+    (state, loss)``: one BPTT step of the generator (in place), by
+    ``state.optimizer``.  ``reduce(loss, grads) -> (loss, grads)``, when
+    given, combines the step's loss and gradients with other processes'
+    before anything reads them (`parallel.mesh.make_sharded_train_step`).
+    ``accept(loss)``, when given, is asked before the optimizer step (the
+    trainer's spike guard); on False the parameters stay as they were.
+    ``loss`` is a 0-dim tensor on the clip's device."""
     clip_loss = make_clip_loss(cfg, model, criterion)
 
     def train_step(state: TrainState, low, flow, high,
-                   accept: Optional[Callable] = None):
-        opt = state.optimizer
+                   accept: Optional[Callable] = None,
+                   reduce: Optional[Callable] = None):
         with fp32_convs():
             loss, _ = clip_loss(low, flow, high)
-            grads = torch.autograd.grad(loss, opt.params)
-        loss = loss.detach()
-        if accept is not None and not accept(loss):
-            return state, loss
-        opt.step(grads)
-        state.step += 1
-        return state, loss
+            grads = torch.autograd.grad(loss, state.optimizer.params)
+        return optimizer_step(state, loss.detach(), grads, accept, reduce)
 
     return train_step
 

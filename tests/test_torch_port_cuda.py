@@ -865,3 +865,157 @@ def test_sn_wgan_gp_discriminator_step_card_matches_cpu():
         assert all(bool(torch.isfinite(p).all())
                    for p in crit.discriminators.parameters())
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# slice 9b: the shaded trainer and the parallel layer on the card
+# ---------------------------------------------------------------------------
+
+def _shaded_setup(device):
+    from isosurfacesuperresolution_tpu_torch.config import (
+        Config, LossConfig, ModelConfig, TrainConfig)
+    from isosurfacesuperresolution_tpu_torch.losses.lossnet import LossNet
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network)
+    from isosurfacesuperresolution_tpu_torch.train import trainer as TR
+    from isosurfacesuperresolution_tpu_torch.train import trainer_shaded as TS
+    cfg = Config(model=ModelConfig(num_residual_blocks=2, num_features=16,
+                                   input_channels=8, output_channels=3,
+                                   channel_mask=(0, 1, 2)),
+                 loss=LossConfig(losses="l1:1,temp-l2:0.1", padding=4),
+                 train=TrainConfig(batch_size=2, crop_size=16, num_frames=3,
+                                   learning_rate=1e-3))
+    gen = torch.Generator().manual_seed(16)
+    model = create_network(cfg.model, generator=gen).to(device)
+    crit = LossNet(cfg.loss, 64, 8, 3, losses=cfg.loss.losses)
+    state = TS.create_shaded_train_state(cfg, model, crit,
+                                         TR.make_optimizer(cfg), gen)
+    return cfg, state, TS.make_shaded_train_step(cfg, model, crit)
+
+
+def _shaded_clip(seed, device):
+    rng = np.random.RandomState(seed)
+    low = rng.rand(2, 3, 16, 16, 8).astype(np.float32)
+    low[..., 3] = low[..., 3] > 0.3
+    flow = (rng.rand(2, 3, 16, 16, 2).astype(np.float32) - 0.5) * 0.1
+    high = np.repeat(np.repeat(low[..., :3], 4, 2), 4, 3)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (low, flow, high)]
+
+
+@pytest.mark.cuda
+def test_shaded_train_steps_card_match_cpu():
+    """Shaded training from one seeded state, card vs CPU: the first
+    step's gradient of every leaf within 5e-4 of the leaf's largest |g|
+    (float32 BPTT sums in another order; up to 2.2e-4 measured on an
+    H100) and the losses of three Adam steps at rel 1e-4.  The parameters
+    themselves are not compared: Adam's first steps move every element by
+    about lr whatever its gradient's size, so a gradient known only to
+    float32 rounding (27 of block0_conv1's 2304 are below 1e-6 of its
+    largest with these seeds) can send an element lr the other way."""
+    _need_card()
+    from isosurfacesuperresolution_tpu_torch.infer.pipeline import (
+        fp32_convs)
+    from isosurfacesuperresolution_tpu_torch.losses.lossnet import LossNet
+    from isosurfacesuperresolution_tpu_torch.train import trainer_shaded as TS
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, step = _shaded_setup(dev)
+        crit = LossNet(cfg.loss, 64, 8, 3, losses=cfg.loss.losses)
+        with fp32_convs():
+            loss, _ = TS.make_shaded_clip_loss(cfg, state.model, crit)(
+                *_shaded_clip(60, dev))
+            grads = torch.autograd.grad(loss, state.optimizer.params)
+        losses = [float(step(state, *_shaded_clip(60 + i, dev))[1])
+                  for i in range(3)]
+        runs[dev] = (losses, [g.cpu() for g in grads])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for g_card, g_cpu in zip(runs["cuda"][1], runs["cpu"][1]):
+        scale = float(g_cpu.abs().max())
+        np.testing.assert_allclose(g_card.numpy(), g_cpu.numpy(), rtol=0,
+                                   atol=5e-4 * scale)
+
+
+@pytest.fixture
+def nccl_group(tmp_path):
+    """A one-process nccl group on the card, destroyed after the test."""
+    _need_card()
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + str(
+        tmp_path / "rdv"), world_size=1, rank=0,
+        device_id=torch.device("cuda", 0))
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_sharded_step_equals_the_plain_step(nccl_group):
+    """At world 1 the data-parallel step (its all-reduce on the card) is
+    the plain step, under `test_train_steps_card_match_cpu`'s bounds (the
+    card's float32 conv backward need not repeat itself bit for bit)."""
+    from isosurfacesuperresolution_tpu_torch.parallel.mesh import (
+        make_mesh, make_sharded_train_step)
+    mesh = make_mesh(1)
+    out = []
+    for sharded in (False, True):
+        cfg, state, step = _shaded_setup("cuda")
+        if sharded:
+            step = make_sharded_train_step(step, mesh)
+        losses = [float(step(state, *_shaded_clip(70 + i, "cuda"))[1])
+                  for i in range(2)]
+        out.append((losses, state.model.state_dict()))
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-4)
+    lr = 1e-3
+    for k, v in out[0][1].items():
+        d = (out[1][1][k] - v).abs()
+        far = d > 1e-2 * lr
+        assert int(far.sum()) <= 0.03 * d.numel() and float(d.max()) < \
+            0.1 * lr, (k, int(far.sum()), float(d.max()))
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_sharded_sweep_and_cameras(nccl_group):
+    """The slab sweep at D = 1 (no halo sends; the combine's all-reduces
+    on the card), from the grid on the card and from a copy on the host,
+    equals the single-device scan on the card, and the multi-camera
+    render equals per-camera renders, all bit for bit."""
+    import dataclasses
+    from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+    from isosurfacesuperresolution_tpu_torch.parallel.mesh import (
+        make_mesh, render_cameras_sharded)
+    from isosurfacesuperresolution_tpu_torch.parallel.sharded_sweep import (
+        render_gbuffer_sweep_sharded)
+    from isosurfacesuperresolution_tpu_torch.render.ao_sweep import (
+        attach_baked_ao)
+    from isosurfacesuperresolution_tpu_torch.render.api import (
+        render_frame_gbuffer)
+    from isosurfacesuperresolution_tpu_torch.render.camera import (
+        CameraParams)
+    from isosurfacesuperresolution_tpu_torch.render.sweep import (
+        render_gbuffer_sweep)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+    grid = attach_baked_ao(analytic.blobs_volume(62, num_blobs=5), 0.5, 0.1)
+    host = dataclasses.replace(grid, values=grid.values.cpu(),
+                               brick_min=grid.brick_min.cpu(),
+                               brick_max=grid.brick_max.cpu(),
+                               ao_sh=grid.ao_sh.cpu())
+    cam = CameraParams.create((0.3, 0.8, -1.7))
+    for ao in (0, 64):
+        cfg = RenderConfig(width=48, height=40, isovalue=0.5, ao_samples=ao,
+                           ao_mode="volume" if ao else "auto")
+        want = render_gbuffer_sweep(grid, cam, cam, cfg)
+        for g in (grid, host):
+            got = render_gbuffer_sweep_sharded(g, cam, cam, cfg,
+                                               make_mesh(1, axis_name="z"))
+            assert got.device == want.device and torch.equal(got, want)
+    eyes = torch.tensor([[1.7, 0.7, 0.0], [0.0, 0.7, -1.7]])
+    looks, ups = torch.zeros(2, 3), torch.tensor([[0.0, 1.0, 0.0]] * 2)
+    cfg = RenderConfig(width=32, height=24, isovalue=0.5,
+                       renderer="sweep_pallas")
+    frames = render_cameras_sharded(grid, eyes, looks, ups, cfg,
+                                    make_mesh(1))
+    for i in range(2):
+        c = CameraParams.create(eyes[i], looks[i], ups[i])
+        assert torch.equal(frames[i], render_frame_gbuffer(grid, c, c, cfg))

@@ -1,5 +1,5 @@
-"""Guards of the port: it imports nothing of JAX (nor flax, optax or
-orbax) or the JAX package, its entry points run on the card unless asked
+"""Guards of the port: it imports nothing of JAX (nor flax, optax, orbax
+or tensorstore) or the JAX package, its entry points run on the card unless asked
 for the CPU, and the kernel wrappers never fall back from a CUDA request
 to the plain version."""
 
@@ -13,6 +13,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from isosurfacesuperresolution_tpu_torch import kernels
+from isosurfacesuperresolution_tpu_torch.apps import main_video_shaded
 from isosurfacesuperresolution_tpu_torch.apps import main_video_unshaded
 from isosurfacesuperresolution_tpu_torch.config import (
     Config, ModelConfig, RenderConfig)
@@ -43,7 +44,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "orbax", "isosurfacesuperresolution_tpu"))
+                                    "orbax", "tensorstore",
+                                    "isosurfacesuperresolution_tpu"))
 print(" ".join(names))
 print(bad)
 """
@@ -59,7 +61,10 @@ NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
                "losses.lossnet_unshaded", "data.dataset",
                "data.dataset_single", "train.optim", "train.trainer",
                "train.checkpoint", "train.device_data",
-               "apps.main_video_unshaded")
+               "apps.main_video_unshaded", "losses.lossnet",
+               "train.trainer_shaded", "apps.main_video_shaded",
+               "train.ocdbt", "parallel.mesh", "parallel.multihost",
+               "parallel.sharded_sweep")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -69,7 +74,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     names = names.split()
-    assert len(names) >= 55          # every module of the port was imported
+    assert len(names) >= 63          # every module of the port was imported
     for mod in NEW_MODULES:
         assert f"isosurfacesuperresolution_tpu_torch.{mod}" in names
     assert bad == "[]"
@@ -96,6 +101,13 @@ ENTRY_POINTS = {
           "flow": np.zeros((1, 4, 4, 2), np.float32)}]),
     "main_video_unshaded.main": lambda: main_video_unshaded.main(
         ["--dataset", "analytic:sphere", "--runDir", os.devnull]),
+    "main_video_unshaded.main dataParallel": lambda: main_video_unshaded.main(
+        ["--dataset", "analytic:sphere", "--runDir", os.devnull,
+         "--dataParallel", "2"]),
+    "main_video_shaded.main": lambda: main_video_shaded.main(
+        ["--dataset", "analytic:sphere", "--runDir", os.devnull]),
+    "LoadedModel.from_run_dir orbax": lambda: LoadedModel.from_run_dir(
+        os.path.join(ROOT, "artifacts", "run00022", "run00022")),
     "InferencePipeline": lambda: pipeline.InferencePipeline(
         EnhanceNet(ModelConfig(num_residual_blocks=1, num_features=8)),
         Config(model=ModelConfig(num_residual_blocks=1, num_features=8)),

@@ -105,12 +105,22 @@ def test_from_params_npz_matches_jax():
 
 
 def test_orbax_run_dir_is_refused(tmp_path):
-    """A run dir whose weights are orbax checkpoints raises, naming orbax
-    (the port reads its own checkpoints/epoch_<N>.pt, not OCDBT trees)."""
-    shutil.copy(os.path.join(RUN, "config.json"), tmp_path / "config.json")
-    (tmp_path / "checkpoints" / "5").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax checkpoints"):
-        LoadedModel.from_run_dir(str(tmp_path), epoch=5, device="cpu")
+    """Orbax run dirs load since the port reads OCDBT (`train/ocdbt.py`):
+    ``checkpoints/5`` holding run00022's step 70 gives that step's
+    generator at ``epoch=5``; a digit-named directory that holds no
+    OCDBT database is refused, naming orbax."""
+    src = os.path.join(os.path.dirname(RUN), "run00022", "run00022")
+    shutil.copy(os.path.join(src, "config.json"), tmp_path / "config.json")
+    (tmp_path / "checkpoints").mkdir()
+    os.symlink(os.path.join(src, "checkpoints", "70"),
+               tmp_path / "checkpoints" / "5")
+    got = LoadedModel.from_run_dir(str(tmp_path), epoch=5, device="cpu")
+    want = LoadedModel.from_run_dir(src, device="cpu")
+    for k, v in want.model.state_dict().items():
+        assert torch.equal(got.model.state_dict()[k], v), k
+    (tmp_path / "checkpoints" / "6").mkdir()
+    with pytest.raises(FileNotFoundError, match="not an orbax"):
+        LoadedModel.from_run_dir(str(tmp_path), epoch=6, device="cpu")
 
 
 @pytest.fixture(scope="module")

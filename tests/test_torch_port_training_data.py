@@ -275,9 +275,17 @@ def test_checkpoint_manager_round_trip(tmp_path):
 
 
 def test_orbax_checkpoints_are_refused(tmp_path):
+    """A run dir with an orbax step opens (the generator and the
+    discriminators restore from such steps, `tests/test_torch_port_ocdbt.
+    py`); a full-state restore from it is refused, naming orbax, and a
+    digit-named directory without a database is refused too."""
     (tmp_path / "checkpoints" / "3").mkdir(parents=True)
+    mgr = PC.CheckpointManager(str(tmp_path))
+    assert mgr.latest_epoch() == 3
     with pytest.raises(NotImplementedError, match="orbax"):
-        PC.CheckpointManager(str(tmp_path))
+        mgr.restore(None)
+    with pytest.raises(FileNotFoundError, match="orbax"):
+        mgr.restore_params(torch.nn.Linear(1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +369,6 @@ def test_port_run_dir_loads_in_both_packages(trained):
 @pytest.mark.parametrize("argv,match", [
     (["--dataset", "volume.dat"], "slice 10"),
     (["--dataset", "descriptor:list.txt"], "slice 10"),
-    (["--dataParallel", "2"], "next slice"),
 ])
 def test_main_refuses_what_later_slices_bring(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
