@@ -173,9 +173,39 @@ seconds; any failure ends the run with a non-zero exit code:
    artifacts/run00022/run00022 (step 70) through
    `LoadedModel.from_run_dir` on the card (seconds to read each), their
    parameters bit for bit a CPU read, and a main-path frame of each
-   (`InferencePipeline`, 3 frames, finite).
+   (`InferencePipeline`, 3 frames, finite);
+35. volume I/O at real size: phase 8's 512^3 uint8 bytes written as a
+   ``.raw`` + ``.dat`` under ``build/smoke_io/`` (removed at the end), the
+   native readers built (a failed build fails the run), the raw decode
+   native (`native.volumeio.load_raw`, called directly) and numpy at
+   downsampling 1 and 2 (equal to 1e-6) and `import_raw` onto the card
+   both ways, a 256^3 float32 ``.vdb`` written (zip) and read natively
+   (bit for bit), a 1920x1080 G-buffer (B1) as the four EXRs of
+   ``render_cli --saveExr`` read back exactly, a ``.cvol.npz`` round trip
+   onto the card, and B2 at 480x270 on the imported uint8 grid bit for
+   bit the grid built directly from the same bytes;
+36. the pipe server: the port's `apps.render_server` in a child process
+   on the card (``--volume analytic:blobs:256 --renderer sweep_pallas``)
+   driven by `infer.pipe_client.PipeRenderer`: 20 orbit frames at
+   480x270 (the client's ms a frame, the server's trailing seconds), the
+   banner on stdout, EOF on the frame stream after ``exit``, the last
+   frame bit for bit an in-process `render_frame_gbuffer`; then 3 frames
+   of the default ``sweep`` renderer;
+37. `apps.render_cli` on the ``.dat`` at 1920x1080 with ``--ao volume
+   --animation 5 --downscale_factor 4 --saveGbuffer`` (B2 and B4; with
+   ``--saveExr``), again ``--sparse`` (B3 and B4p), and ``-m volume`` at
+   480x270: PNGs and EXRs read back equal to the saved G-buffers;
+   `apps.convert_volume` ``.dat`` -> ``.cvol.npz --bakeAO --downsample 2``
+   and ``.dat`` -> ``.vdb``; `main_video_unshaded.load_sequences` on a
+   ``descriptor:`` file and on the ``.dat`` (one clip of 2 frames each);
+38. `apps.main_psnr_stats` at the reference defaults (4 clips of 10
+   frames at 256^2 with 64-sample AO; bilinear, bicubic and run00017) on
+   ``analytic:blobs:256`` (B1, B1-ao) and on the ``.dat`` (B2, B4), its
+   seconds a volume, and card vs CPU on one 3-frame clip at 160^2 (the
+   15-px border leaves MS-SSIM too few pixels at 128^2) within stated
+   bounds.
 
-In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-34 the launch
+In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-38 the launch
 counts are zeroed just before each run and read just after it; in phases
 4-23 frames 3 onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
 of kernel numbers, the card line, and last the device line.  Float32
@@ -844,10 +874,12 @@ def erode(m, iterations: int):
     return m
 
 
-def counted(fn, tag: str, counters: dict, want: dict, add):
+def counted(fn, tag: str, counters: dict, want, add):
     """Run ``fn()`` once with the launch counts zeroed just before and
     read just after (a path run): (output, seconds on the host clock
-    around a synced call); the launches must be ``want``."""
+    around a synced call); the launches must be ``want``, a dict of
+    counts, or, where the counts depend on the data (tiles, clips), a
+    set of the kernels that must launch while no other one does."""
     import torch
     torch.cuda.synchronize()
     for holder, attr in counters.values():
@@ -857,7 +889,12 @@ def counted(fn, tag: str, counters: dict, want: dict, add):
     torch.cuda.synchronize()
     sec = time.time() - t
     launches = {k: getattr(h, a) for k, (h, a) in counters.items()}
-    expect(launches, want, tag)
+    if isinstance(want, set):
+        if {k for k, v in launches.items() if v} != want:
+            raise RuntimeError(f"[{tag}] kernels launched {launches}, "
+                               f"expected {sorted(want)} and no other")
+    else:
+        expect(launches, want, tag)
     add(launches)
     log(f"[{tag}] {sec * 1e3:.1f} ms, launches "
         f"{ {k: v for k, v in launches.items() if v} }")
@@ -1790,6 +1827,504 @@ def orbax_runs(grid, counters: dict, add, frame_cfg) -> None:
             del pipe, lm, host
 
 
+# --------------------------------------------------------------------------
+# phases 35-38: volume and image I/O, the renderer's front ends
+# --------------------------------------------------------------------------
+
+# the stats harness card vs CPU (phase 38): the same clips to the march's
+# rounding (phase 27: 1e-6 where both hit, masks equal on small clips) and
+# run00017 through float32 convolutions in other sum orders (cuDNN against
+# oneDNN, 1e-4 a pass): the bounds tests/test_torch_port_frontends.py
+# holds the port's harness to against JAX's
+MAX_STATS_PSNR_DB = 0.05
+MAX_STATS_SSIM = 1e-3
+MAX_STATS_L2_REL = 1e-3
+
+
+def _orbit_eye(ang: float) -> tuple:
+    """`cam_at`'s eye as Python floats (sent as text, read back exactly)."""
+    return (1.7 * math.sin(ang), 0.9, -1.7 * math.cos(ang))
+
+
+def _quantized(rgb):
+    import numpy as np
+    return (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+
+
+def volume_io(vol_u8, grid, work: Path, counters: dict, add, cfg512,
+              frame_cfg) -> dict:
+    """Phase 35: the importers, `.vdb`, EXR and `.cvol` at real size.
+    Writes ``work/blobs512.dat`` (+ .raw) for phases 37-38."""
+    import numpy as np
+    import torch
+    from isosurfacesuperresolution_tpu_torch.apps.render_cli import (
+        write_exrs)
+    from isosurfacesuperresolution_tpu_torch.data.exr import read_exr
+    from isosurfacesuperresolution_tpu_torch.native import build as nbuild
+    from isosurfacesuperresolution_tpu_torch.native import vdbio, volumeio
+    from isosurfacesuperresolution_tpu_torch.render.api import (
+        render_frame_gbuffer)
+    from isosurfacesuperresolution_tpu_torch.volume import importers
+    from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
+    from isosurfacesuperresolution_tpu_torch.volume.vdb import load_vdb
+    from isosurfacesuperresolution_tpu_torch.volume.vdb_write import (
+        write_vdb)
+
+    times = {}
+    with phase("35 volume I/O at real size"):
+        # the native readers: a failed build fails the run
+        t = time.time()
+        built = nbuild.build()
+        for name, sec in built.items():
+            log(f"built native {name} ({' '.join(nbuild.SOURCES[name][1])}) "
+                f"in {sec:.1f} s")
+        log(f"native build {time.time() - t:.1f} s")
+        X, Y, Z = vol_u8.shape
+        raw = work / "blobs512.raw"
+        vol_u8.transpose(2, 1, 0).tofile(raw)      # slice-major on disk
+        dat = work / "blobs512.dat"
+        dat.write_text("ObjectFileName: blobs512.raw\n"
+                       f"Resolution: {X} {Y} {Z}\nFormat: UCHAR\n")
+        for ds in (1, 2):
+            t = time.time()
+            nat = volumeio.load_raw(str(raw), (X, Y, Z), "UCHAR", ds, 0.001)
+            t_nat = time.time() - t
+            t = time.time()
+            ref = importers.box_downsample(importers._load_raw_numpy(
+                str(raw), (X, Y, Z), "UCHAR"), ds)
+            ref[ref < 0.001] = 0.0
+            t_np = time.time() - t
+            err = float(np.abs(nat - ref).max())
+            times[f"decode native ds{ds}"] = t_nat
+            times[f"decode numpy ds{ds}"] = t_np
+            log(f"[raw decode 512^3 UCHAR, downsampling {ds}] native "
+                f"{t_nat:.3f} s, numpy {t_np:.3f} s, shape {nat.shape}, "
+                f"max |native - numpy| {err:.2e} (bound 1e-6)")
+            if nat.shape != (X // ds, Y // ds, Z // ds) or err > 1e-6:
+                raise RuntimeError("the native and numpy raw decodes "
+                                   "disagree")
+            del nat, ref
+        for native in (True, False):
+            t = time.time()
+            g = importers.import_raw(str(dat), use_native=native,
+                                     device="cuda")
+            torch.cuda.synchronize()
+            sec = time.time() - t
+            times[f"import {'native' if native else 'numpy'}"] = sec
+            log(f"[import_raw 512^3 float32 onto the card, "
+                f"{'native' if native else 'numpy'} decode] {sec:.2f} s "
+                f"(decode, float32 grid, brick pyramid, copy)")
+            del g
+
+        # .vdb: a 256^3 float32 volume written (zip) and read natively
+        v256 = vol_u8[::2, ::2, ::2].astype(np.float32) / 255.0
+        vdb = work / "blobs256.vdb"
+        t = time.time()
+        write_vdb(str(vdb), v256, compression="zip")
+        times["vdb write"] = time.time() - t
+        t = time.time()
+        dense, vox = vdbio.load(str(vdb))
+        times["vdb read"] = time.time() - t
+        t = time.time()
+        gv, name = load_vdb(str(vdb), device="cuda")
+        torch.cuda.synchronize()
+        times["load_vdb"] = time.time() - t
+        nz = np.nonzero(v256)
+        crop = v256[nz[0].min():nz[0].max() + 1, nz[1].min():nz[1].max() + 1,
+                    nz[2].min():nz[2].max() + 1]
+        same = (np.array_equal(dense, crop)
+                and np.array_equal(gv.values.cpu().numpy(), crop))
+        log(f"[.vdb 256^3 float32, zip] write {times['vdb write']:.2f} s "
+            f"({vdb.stat().st_size / 2**20:.1f} MiB), native read "
+            f"{times['vdb read']:.2f} s, load_vdb onto the card "
+            f"{times['load_vdb']:.2f} s; grid {name!r} {dense.shape} over "
+            f"the active box, bit for bit the array: {same}")
+        if not same:
+            raise RuntimeError(".vdb round trip differs from the array")
+        del v256, dense, gv, crop
+
+        # EXR: one 1920x1080 G-buffer as render_cli --saveExr writes it
+        cfg_hd = frame_cfg.replace(width=1920, height=1080)
+        fr, _ = counted(lambda: render_frame_gbuffer(
+            grid, cam_at(0.0), cam_at(0.03), cfg_hd).cpu().numpy(),
+            "exr G-buffer 1920x1080", counters, {"sweep_march": 1}, add)
+        base = str(work / "frame")
+        t = time.time()
+        write_exrs(base, fr)
+        times["exr write"] = time.time() - t
+        t = time.time()
+        back = {s: read_exr(base + s + ".exr")
+                for s in ("", "_depth", "_fx", "_flow")}
+        times["exr read"] = time.time() - t
+        ok = all(np.array_equal(back[s][k], fr[..., c])
+                 for s, chans in (("", (0, 1, 2, 3)), ("_depth", (4, 5, 6, 7)),
+                                  ("_fx", (10, 11)), ("_flow", (8, 9)))
+                 for c, k in zip(chans, "RGBA"))
+        size = sum(os.path.getsize(base + s + ".exr") for s in back)
+        log(f"[EXR 1920x1080 x 12 channels, 4 files, ZIP float] write "
+            f"{times['exr write']:.2f} s ({size / 2**20:.1f} MiB), read "
+            f"{times['exr read']:.2f} s; every channel read back exactly: "
+            f"{ok}")
+        if not ok:
+            raise RuntimeError("EXR round trip differs")
+        del fr, back
+
+        # .cvol round trip onto the card (the 256^3 import)
+        g2 = importers.import_raw(str(dat), downsampling=2, device="cuda")
+        cvol = work / "blobs256.cvol.npz"
+        t = time.time()
+        importers.save_cvol(str(cvol), g2)
+        times["cvol save"] = time.time() - t
+        t = time.time()
+        g3 = importers.load_cvol(str(cvol), device="cuda")
+        torch.cuda.synchronize()
+        times["cvol load"] = time.time() - t
+        same = all(torch.equal(getattr(g2, k), getattr(g3, k))
+                   for k in ("values", "brick_min", "brick_max", "bbox_min",
+                             "bbox_max")) and g3.device.type == "cuda"
+        log(f"[.cvol 256^3 float32] save {times['cvol save']:.2f} s, load "
+            f"onto the card {times['cvol load']:.2f} s, equal: {same}")
+        if not same:
+            raise RuntimeError(".cvol round trip differs")
+        del g2, g3
+
+        # the imported 512^3 grid renders on B2 like the grid built
+        # directly from the same bytes
+        gi = importers.import_raw(str(dat), store_dtype="uint8",
+                                  device="cuda")
+        gd = BrickGrid.from_dense(vol_u8, store_dtype="uint8", device="cuda")
+        same_grid = (torch.equal(gi.values, gd.values)
+                     and gi.value_scale == gd.value_scale
+                     and gi.value_offset == gd.value_offset
+                     and torch.equal(gi.brick_max, gd.brick_max))
+        frames = {}
+        for tag, g in (("imported", gi), ("direct", gd)):
+            frames[tag], _ = counted(
+                lambda: render_frame_gbuffer(g, cam_at(0.0), cam_at(0.0),
+                                             cfg512),
+                f"B2 on the {tag} 512^3 grid", counters,
+                {"sweep_march_tiled": 1}, add)
+        equal = torch.equal(frames["imported"], frames["direct"])
+        log(f"[import vs direct 512^3 uint8] grids equal: {same_grid}; B2 "
+            f"480x270 frames bit for bit: {equal}; mask share "
+            f"{float((frames['direct'][..., 3] > 0.5).float().mean()):.4f}")
+        if not (same_grid and equal):
+            raise RuntimeError("the imported grid renders differently")
+        del gi, gd, frames
+    return {"dat": dat, "times": times}
+
+
+def pipe_server(counters: dict, add) -> dict:
+    """Phase 36: the port's render_server on the card through
+    `PipeRenderer`."""
+    import numpy as np
+    import torch
+    from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+    from isosurfacesuperresolution_tpu_torch.infer.pipe_client import (
+        PipeRenderer)
+    from isosurfacesuperresolution_tpu_torch.render.api import (
+        render_frame_gbuffer)
+    from isosurfacesuperresolution_tpu_torch.render.camera import (
+        CameraParams)
+    from isosurfacesuperresolution_tpu_torch.render.params import (
+        RenderParams)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+
+    times = {}
+    with phase("36 the pipe server on the card"):
+        W, H = 480, 270
+        n_frames = 20
+        t = time.time()
+        r = PipeRenderer.local_server("analytic:blobs:256", W, H,
+                                      renderer="sweep_pallas", cwd=str(ROOT))
+        frames, ms, server_s, eyes = [], [], [], []
+        try:
+            for i in range(n_frames):
+                eye = _orbit_eye(0.03 * i)
+                eyes.append(eye)
+                r.send_command("cameraOrigin", ",".join(map(repr, eye)))
+                t1 = time.perf_counter()
+                frames.append(r.render())
+                ms.append((time.perf_counter() - t1) * 1e3)
+                server_s.append(r.last_time)
+                if i == 0:
+                    times["server first frame"] = time.time() - t
+            r.proc.stdin.write(b"exit\n")
+            r.proc.stdin.flush()
+            rc = r.proc.wait(timeout=120)
+            tail = r.proc.stderr.read()
+        finally:
+            r.close()
+        times["pipe ms"] = statistics.median(ms[2:])
+        times["server ms"] = statistics.median(server_s[2:]) * 1e3
+        log(f"[pipe server sweep_pallas, analytic:blobs:256, {W}x{H}] start "
+            f"and first frame {times['server first frame']:.1f} s; frames "
+            f"3-{n_frames}: client {times['pipe ms']:.2f} ms a frame "
+            f"(median; min {min(ms[2:]):.2f}, max {max(ms[2:]):.2f}), the "
+            f"server's own seconds {times['server ms']:.2f} ms (median); "
+            f"exit code {rc}, bytes after exit {len(tail)}; stdout "
+            f"{r.output}")
+        if rc != 0 or tail != b"" or r.output[:1] != [
+                "Enter Pipe mode and wait for commands"] or (
+                r.output[-1:] != ["Exit program"]):
+            raise RuntimeError("the pipe server's stream or banner is wrong")
+        grid = analytic.blobs_volume(256, device="cuda")
+        cfg = RenderConfig(width=W, height=H, ao_samples=0,
+                           renderer="sweep_pallas")
+        cams = [CameraParams.create(e, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                                    45.0) for e in eyes[-2:]]
+        want, _ = counted(lambda: render_frame_gbuffer(
+            grid, cams[1], cams[0], cfg,
+            RenderParams.from_config(cfg)).cpu().numpy(),
+            "in-process frame", counters, {"sweep_march": 1}, add)
+        equal = np.array_equal(frames[-1], want)
+        finite = all(np.isfinite(f).all() for f in frames)
+        log(f"[pipe server] last frame bit for bit the in-process "
+            f"render_frame_gbuffer: {equal}; all {n_frames} frames finite: "
+            f"{finite}; mask share {float((want[..., 3] > 0.5).mean()):.4f}")
+        if not (equal and finite):
+            raise RuntimeError("the pipe frame differs from the in-process "
+                               "frame")
+        del grid, want, frames
+        torch.cuda.empty_cache()
+
+        # the default renderer: the host-steered slice scan
+        with PipeRenderer.local_server("analytic:blobs:256", W, H,
+                                       cwd=str(ROOT)) as r:
+            scan = []
+            for i in range(3):
+                r.send_command("cameraOrigin",
+                               ",".join(map(repr, _orbit_eye(0.03 * i))))
+                fr = r.render()
+                scan.append(r.last_time)
+                if not (np.isfinite(fr).all() and (fr[..., 3] > 0.5).any()):
+                    raise RuntimeError("the scan server's frame is empty "
+                                       "or not finite")
+        times["scan ms"] = statistics.median(scan) * 1e3
+        log(f"[pipe server sweep (default)] 3 frames, the server's seconds "
+            f"{[round(s * 1e3, 1) for s in scan]} ms")
+    return times
+
+
+def cli_and_converter(dat: Path, work: Path, counters: dict, add) -> dict:
+    """Phase 37: render_cli, convert_volume and the trainer's imported
+    datasets on the card."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from isosurfacesuperresolution_tpu_torch.apps import (
+        convert_volume, main_video_unshaded, render_cli)
+    from isosurfacesuperresolution_tpu_torch.data.exr import read_exr
+    from isosurfacesuperresolution_tpu_torch.native import vdbio
+    from isosurfacesuperresolution_tpu_torch.volume import importers
+
+    times = {}
+    name = dat.stem
+    with phase("37 render_cli, convert_volume and imported datasets"):
+        runs = (("dense", ["--saveExr"],
+                 {"sweep_march_tiled", "ao_capture_tiled"}),
+                ("sparse", ["--sparse"],
+                 {"sweep_march_packed", "ao_capture_packed"}))
+        for tag, extra, need in runs:
+            out = work / f"cli_{tag}"
+            args = ["--volume", str(dat), "--res", "1920,1080", "--ao",
+                    "volume", "--animation", "5", "--downscale_factor", "4",
+                    "--saveGbuffer", "--renderer", "sweep_pallas",
+                    "--isovalue", "0.36", "--output", str(out), *extra]
+            _, sec = counted(lambda: render_cli.main(args),
+                                  f"render_cli {tag} 512^3 1920x1080 + "
+                                  f"480x270, 5 frames", counters, need, add)
+            times[f"cli {tag}"] = sec
+            worst = 0
+            for i in range(5):
+                base = out / f"{name}_{i:05d}"
+                gb = np.load(f"{base}.npz")["gbuffer"]
+                lo = np.load(f"{base}_low.npz")["gbuffer"]
+                png = np.asarray(Image.open(f"{base}.png"))
+                png_lo = np.asarray(Image.open(f"{base}_low.png"))
+                ok = (np.array_equal(png, _quantized(gb[..., :3]
+                                                     * gb[..., 10:11]))
+                      and np.array_equal(png_lo, _quantized(lo[..., :3])))
+                if "--saveExr" in extra:
+                    for s, chans in (("", (0, 1, 2, 3)),
+                                     ("_depth", (4, 5, 6, 7)),
+                                     ("_fx", (10, 11)), ("_flow", (8, 9))):
+                        exr = read_exr(f"{base}{s}.exr")
+                        ok &= all(np.array_equal(exr[k], gb[..., c])
+                                  for c, k in zip(chans, "RGBA"))
+                hit = gb[..., 3] > 0.5
+                ok &= bool(hit.any()) and bool(np.isfinite(gb).all())
+                ok &= bool((gb[..., 10][hit] < 1).any())      # AO present
+                worst += not ok
+            log(f"[render_cli {tag}] {sec:.2f} s for 5 frames "
+                f"({sec / 5:.2f} s a frame, import and bake included); PNGs"
+                + (", EXRs" if "--saveExr" in extra else "")
+                + f" read back equal to the saved G-buffers: {worst == 0}")
+            if worst:
+                raise RuntimeError(f"render_cli {tag}: files differ from the "
+                                   f"G-buffer")
+        out = work / "cli_volume"
+        _, sec = counted(lambda: render_cli.main(
+            ["--volume", str(dat), "-m", "volume", "--res", "480,270",
+             "--isovalue", "0.36", "--saveGbuffer", "--output", str(out)]),
+            "render_cli -m volume 512^3 480x270", counters, set(), add)
+        times["cli volume"] = sec
+        rgba = np.load(out / f"{name}.npz")["rgba"]
+        ok = (np.array_equal(np.asarray(Image.open(out / f"{name}.png")),
+                             _quantized(rgba))
+              and bool(np.isfinite(rgba).all()) and float(rgba[..., 3].max())
+              > 0)
+        log(f"[render_cli -m volume] {sec:.2f} s a frame; RGBA finite, "
+            f"non-empty, PNG equal to it: {ok}")
+        if not ok:
+            raise RuntimeError("render_cli -m volume: wrong output")
+
+        cvol = work / "blobs256_ao.cvol.npz"
+        _, sec = counted(lambda: convert_volume.main(
+            [str(dat), str(cvol), "--bakeAO", "--downsample", "2"]),
+            "convert_volume .dat -> .cvol --bakeAO --downsample 2",
+            counters, set(), add)
+        times["convert cvol"] = sec
+        g = importers.load_cvol(str(cvol), device="cuda")
+        ok = g.ao_sh is not None and tuple(g.ao_sh.shape) == (256, 256, 256,
+                                                               4)
+        log(f"[convert_volume .dat -> .cvol.npz --bakeAO --downsample 2] "
+            f"{sec:.2f} s ({cvol.stat().st_size / 2**20:.1f} MiB); field "
+            f"{tuple(g.ao_sh.shape) if g.ao_sh is not None else None}")
+        if not ok:
+            raise RuntimeError("convert_volume --bakeAO: no field")
+        del g
+        vdb = work / "blobs512.vdb"
+        _, sec = counted(lambda: convert_volume.main([str(dat),
+                                                           str(vdb)]),
+                              "convert_volume .dat -> .vdb 512^3", counters,
+                              set(), add)
+        times["convert vdb"] = sec
+        bbox, _ = vdbio.probe(str(vdb))
+        log(f"[convert_volume .dat -> .vdb] {sec:.2f} s "
+            f"({vdb.stat().st_size / 2**20:.1f} MiB), active box {bbox}")
+
+        listing = work / "volumes.txt"
+        listing.write_text(f"{dat.name} 0.3 0.45\n")
+        for tag, spec in (("descriptor", f"descriptor:{listing}"),
+                          ("dat", str(dat))):
+            args = main_video_unshaded.build_parser().parse_args(
+                ["--dataset", spec, "--numberOfImages", "1", "--numFrames",
+                 "2", "--cropSize", "32", "--aoSamples", "0"])
+            seqs, sec = counted(lambda: main_video_unshaded.load_sequences(
+                args, None, torch.device("cuda")),
+                f"load_sequences {tag}", counters, {}, add)
+            times[f"load_sequences {tag}"] = sec
+            s = seqs[0]
+            ok = (len(seqs) == 1 and s["low"].shape == (2, 128, 128, 5)
+                  and s["high"].shape == (2, 512, 512, 6)
+                  and s["flow"].shape == (2, 128, 128, 2)
+                  and all(np.isfinite(s[k]).all() for k in s)
+                  and bool((s["low"][..., 0] > 0).any()))
+            log(f"[load_sequences {tag}] one clip of 2 frames (512^2 and "
+                f"128^2, the scan renderer) in {sec:.2f} s, import "
+                f"included; shapes and values right: {ok}")
+            if not ok:
+                raise RuntimeError(f"load_sequences {tag}: wrong clip")
+    return times
+
+
+def _read_tsv(path: Path) -> tuple:
+    lines = path.read_text().splitlines()
+    head = lines[0].split("\t")
+    return head, {r.split("\t")[0]: [float(x) for x in r.split("\t")[1:]]
+                  for r in lines[1:]}
+
+
+def stats_harness(dat: Path, work: Path, counters: dict, add) -> dict:
+    """Phase 38: main_psnr_stats at the reference defaults on the card,
+    and card vs CPU on one small clip."""
+    from isosurfacesuperresolution_tpu_torch.apps import main_psnr_stats
+
+    times = {}
+    run = str(ROOT / "artifacts" / "run00017")
+    with phase("38 the stats harness at full width"):
+        for spec, vol_name, need in (
+                ("analytic:blobs:256", "blobs",
+                 {"sweep_march", "sweep_march_ao"}),
+                (str(dat), dat.stem,
+                 {"sweep_march_tiled", "ao_capture_tiled"})):
+            out = work / "stats"
+            _, sec = counted(lambda: main_psnr_stats.main(
+                ["--volumes", spec, "--models", "bilinear", "bicubic", run,
+                 "--output", str(out)]),
+                f"main_psnr_stats {vol_name}", counters, need, add)
+            times[f"stats {vol_name}"] = sec
+            head, rows = _read_tsv(out / f"stats_{vol_name}.tsv")
+            ok = (sorted(rows) == ["bicubic", "bilinear", "run00017"]
+                  and all(math.isfinite(v) for r in rows.values() for v in r))
+            log(f"[main_psnr_stats {vol_name}] {sec:.2f} s a volume (4 clips "
+                f"of 10 frames at 256^2 with 64-sample AO, 3 models); "
+                f"PSNR color+AO / normal by model: "
+                f"{ {m: (round(r[4], 3), round(r[0], 3)) for m, r in rows.items()} }; "
+                f"finite: {ok}")
+            if not ok:
+                raise RuntimeError(f"main_psnr_stats {vol_name}: bad table")
+        tables = {}
+        for dev in ("cuda", "cpu"):
+            out = work / f"stats_{dev}"
+            t = time.time()
+            main_psnr_stats.main(
+                ["--volumes", "analytic:blobs:64", "--models", "bilinear",
+                 run, "--numSequences", "1", "--numFrames", "3",
+                 "--highRes", "160", "--aoSamples", "16", "--device", dev,
+                 "--output", str(out)])
+            times[f"stats small {dev}"] = time.time() - t
+            tables[dev] = _read_tsv(out / "stats_blobs.tsv")
+        head, card = tables["cuda"]
+        worst = {}
+        for model, row in tables["cpu"][1].items():
+            for f, c, h in zip(head[1:], card[model], row):
+                d = abs(c - h)
+                if f.startswith("PSNR"):
+                    bad = d > MAX_STATS_PSNR_DB
+                elif f.startswith("SSIM"):
+                    bad = d > MAX_STATS_SSIM
+                else:
+                    bad = d > MAX_STATS_L2_REL * max(abs(h), 1e-3)
+                worst[f] = max(worst.get(f, 0.0), d)
+                if bad:
+                    raise RuntimeError(f"stats card vs CPU: {model} {f} "
+                                       f"{c} vs {h}")
+        log(f"[main_psnr_stats card vs CPU] analytic:blobs:64, 1 clip of 3 "
+            f"frames at 160^2 (40^2 in), bilinear and run00017: card "
+            f"{times['stats small cuda']:.1f} s, CPU "
+            f"{times['stats small cpu']:.1f} s; max |card - CPU| by field "
+            f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (bounds: "
+            f"PSNR {MAX_STATS_PSNR_DB} dB, SSIM {MAX_STATS_SSIM}, L2 "
+            f"{MAX_STATS_L2_REL} relative)")
+    return times
+
+
+def path_counters() -> dict:
+    """Each kernel's launch count: name -> (object, attribute); each
+    wrapper adds one where it launches its kernel."""
+    from isosurfacesuperresolution_tpu_torch.ops import packed_conv as pk
+    from isosurfacesuperresolution_tpu_torch.ops import pallas_conv as p128
+    from isosurfacesuperresolution_tpu_torch.ops import phase_conv as pc
+    from isosurfacesuperresolution_tpu_torch.render import sweep_march
+    from isosurfacesuperresolution_tpu_torch.render import sweep_tiled
+    march = sweep_march.march
+    return {"sweep_march": (march, "launches"),
+            "sweep_march_ao": (march, "ao_launches"),
+            "phase_conv": (pc.phase_conv, "launches"),
+            "sweep_march_tiled": (sweep_tiled.march_tiled_kernel,
+                                  "launches"),
+            "ao_capture_tiled": (sweep_tiled.ao_capture_tiled_kernel,
+                                 "launches"),
+            "sweep_march_packed": (sweep_tiled.march_packed_kernel,
+                                   "launches"),
+            "ao_capture_packed": (sweep_tiled.ao_capture_packed_kernel,
+                                  "launches"),
+            "conv3x3_p128": (p128.conv3x3_p128_kernel, "launches"),
+            "packed_conv3x3": (pk.packed_conv3x3_kernel, "launches")}
+
+
 def main() -> int:
     import torch
 
@@ -1856,19 +2391,7 @@ def main() -> int:
         SWEEP_PERMS, SparseBrickGrid)
 
     march = sweep_march.march
-    counters = {"sweep_march": (march, "launches"),
-                "sweep_march_ao": (march, "ao_launches"),
-                "phase_conv": (pc.phase_conv, "launches"),
-                "sweep_march_tiled": (sweep_tiled.march_tiled_kernel,
-                                      "launches"),
-                "ao_capture_tiled": (sweep_tiled.ao_capture_tiled_kernel,
-                                     "launches"),
-                "sweep_march_packed": (sweep_tiled.march_packed_kernel,
-                                       "launches"),
-                "ao_capture_packed": (sweep_tiled.ao_capture_packed_kernel,
-                                      "launches"),
-                "conv3x3_p128": (p128.conv3x3_p128_kernel, "launches"),
-                "packed_conv3x3": (pk.packed_conv3x3_kernel, "launches")}
+    counters = path_counters()
     frame_cfg = RenderConfig(width=480, height=270, isovalue=0.5,
                              ao_samples=0, renderer="sweep_pallas",
                              sweep_oversample=1.25, sweep_dtype="bfloat16")
@@ -2120,6 +2643,7 @@ def main() -> int:
         grid512 = analytic.blobs_volume(512, store_dtype="uint8",
                                         device="cuda")
         torch.cuda.synchronize()
+        vol512_u8 = grid512.values.cpu().numpy()      # phase 35's bytes
         log(f"blobs_volume(512) stored uint8 (numpy on the host, the brick "
             f"pyramid included): {time.time() - t:.1f} s; occupied bricks "
             f"at iso 0.36: "
@@ -2985,9 +3509,24 @@ def main() -> int:
     del seqs
     parallel_layer(grid, counters, add, frame_cfg)
     orbax_runs(grid, counters, add, frame_cfg)
+    import shutil
+    work = ROOT / "build" / "smoke_io"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        io = volume_io(vol512_u8, grid, work, counters, add, cfg512,
+                       frame_cfg)
+        del vol512_u8
+        io_times = {**io["times"], **pipe_server(counters, add),
+                    **cli_and_converter(io["dat"], work, counters, add),
+                    **stats_harness(io["dat"], work, counters, add)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("phases 35-38, seconds (ms where named): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in io_times.items()))
 
     log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
-        f"18, 19, 21, 22 and 25-34: {path_launches}")
+        f"18, 19, 21, 22 and 25-38: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),

@@ -13,8 +13,10 @@ JAX's tensorboard tags, to ``<run_dir>/scalars.jsonl`` (one JSON object a
 line: tag, value, step); ``--imageEvery`` panels to
 ``<run_dir>/images/<tag>_<epoch>.npy``; checkpoints to
 ``<run_dir>/checkpoints/epoch_<N>.pt`` and the generator to
-``<run_dir>/params.npz`` (JAX's format).  RAW/.dat volumes and
-descriptor files need the volume importers of slice 10 and raise.
+``<run_dir>/params.npz`` (JAX's format).  ``--dataset`` also takes a
+``.dat`` volume or ``descriptor:<file>`` (a line "volume min_iso
+max_iso" a volume), imported onto the run's device
+(`volume/importers.py`) and rendered into clips there.
 
 ``--dataParallel N`` > 1 trains on N devices, one process each
 (`parallel.mesh.make_sharded_train_step`: every process runs its 1/N of
@@ -237,8 +239,8 @@ def _mix_grids(name: str, analytic, dev) -> list:
 
 
 def load_sequences(args, cfg, device):
-    """npy clip dirs, or clips generated over analytic volumes on
-    ``device``."""
+    """npy clip dirs, or clips generated on ``device`` over analytic
+    volumes, a ``.dat`` volume or the volumes a descriptor file lists."""
     from isosurfacesuperresolution_tpu_torch.config import RenderConfig
     from isosurfacesuperresolution_tpu_torch.data.dataset import (
         load_reference_npy_dir)
@@ -248,10 +250,7 @@ def load_sequences(args, cfg, device):
 
     spec = args.dataset
     if spec.startswith("descriptor:") or spec.endswith((".dat", ".raw")):
-        raise NotImplementedError(
-            f"--dataset {spec}: RAW/.dat volumes and descriptor files need "
-            "the port's volume importers (volume/importers.py), which come "
-            "with slice 10 (ROADMAP.md, queue A)")
+        return _imported_sequences(args, spec, device)
     if not spec.startswith("analytic:"):
         return load_reference_npy_dir(spec)
     name = spec.split(":", 1)[1]
@@ -282,6 +281,48 @@ def load_sequences(args, cfg, device):
           f"analytic:{name} ...")
     return generate_sequences(grids, args.numberOfImages, seq_cfg,
                               base_render_cfg=base, seed=args.seed)
+
+
+def _imported_sequences(args, spec: str, device):
+    """Clips over a descriptor file's volumes (a line "volume_path
+    min_iso max_iso" each, `DataGeneratorVideo2.py:99-121`) or one
+    ``.dat`` volume (isovalues 0.3-0.6), as the JAX trainer renders
+    them, on ``device``."""
+    from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+    from isosurfacesuperresolution_tpu_torch.data.generation import (
+        SequenceConfig, generate_sequences)
+    from isosurfacesuperresolution_tpu_torch.volume.importers import (
+        import_npy, import_raw, load_cvol)
+
+    if spec.startswith("descriptor:"):
+        path = spec.split(":", 1)[1]
+        base_dir = os.path.dirname(os.path.abspath(path))
+        grids = []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) != 3 or parts[0].startswith("#"):
+                    continue
+                vp = os.path.join(base_dir, parts[0])
+                if vp.endswith(".dat"):
+                    g = import_raw(vp, device=device)
+                elif vp.endswith(".npz"):
+                    g = load_cvol(vp, device=device)
+                else:
+                    g = import_npy(vp, device=device)
+                grids.append((g, (float(parts[1]), float(parts[2]))))
+        if not grids:
+            raise SystemExit(f"no volumes in descriptor {path}")
+    else:
+        grids = [(import_raw(spec, store_dtype=args.volumeDtype,
+                             device=device), (0.3, 0.6))]
+    seq_cfg = SequenceConfig(
+        num_frames=args.numFrames,
+        high_res=args.cropSize * args.upscaleFactor * 4,
+        ao_samples=args.aoSamples)
+    return generate_sequences(grids, args.numberOfImages, seq_cfg,
+                              base_render_cfg=RenderConfig(step_voxels=0.5),
+                              seed=args.seed)
 
 
 class ScalarWriter:

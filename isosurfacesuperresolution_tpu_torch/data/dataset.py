@@ -9,18 +9,22 @@ samples by sequence, and the reference's ``low_%05d.npy`` /
 The numpy draws come in JAX's order (`np.random.RandomState`), so a seed
 gives JAX's samples and batch order.  Batches are numpy float32 arrays;
 `train/device_data.DeviceVideoDataset` gathers them on the card instead.
-
-The EXR loaders (`load_legacy_exr_dir`) need the EXR codec of slice 10
-(`data/exr.py`) and raise until it is ported.
+The reference's legacy EXR sequence directories load through the port's
+EXR codec (`data/exr.py`, `load_legacy_exr_dir`).
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from isosurfacesuperresolution_tpu_torch.device import (
+    DeviceLike, resolve_device)
 
 
 @dataclass
@@ -198,19 +202,101 @@ def load_reference_npy_dir(path: str) -> List[Dict[str, np.ndarray]]:
     return sequences
 
 
+def _rgba_first(chans: Dict[str, np.ndarray]) -> np.ndarray:
+    """Stack named channels with R,G,B,A leading (the order the legacy
+    loaders index by: channel 3 is the alpha/mask), extras sorted after."""
+    order = [c for c in ("R", "G", "B", "A") if c in chans]
+    order += sorted(c for c in chans if c not in ("R", "G", "B", "A"))
+    return np.stack([chans[c] for c in order], -1)
+
+
 def _read_exr(path: str) -> np.ndarray:
-    """An EXR image as float32 (H, W, C): needs `data/exr.py`."""
-    raise NotImplementedError(
-        f"{path}: EXR images need the port's EXR codec (data/exr.py), "
-        "which comes with slice 10 (ROADMAP.md, queue A); convert the clips "
-        "to the npy layout (load_reference_npy_dir) meanwhile")
+    """Read an EXR image as float32 (H, W, C), channels R,G,B,A-first.
+
+    Tries the built-in scanline codec (`data/exr.py`: float/half,
+    none/zip, everything the reference writes) first, then the OpenEXR
+    bindings (other compressions), then OpenCV."""
+    from isosurfacesuperresolution_tpu_torch.data.exr import (
+        read_exr as _builtin)
+    try:
+        return _rgba_first(_builtin(path))
+    except (ValueError, KeyError, IndexError, struct.error, zlib.error):
+        pass       # unsupported flavour or corrupt file: try the libraries
+    try:
+        import Imath
+        import OpenEXR
+        f = OpenEXR.InputFile(path)
+        dw = f.header()["dataWindow"]
+        w = dw.max.x - dw.min.x + 1
+        h = dw.max.y - dw.min.y + 1
+        pt = Imath.PixelType(Imath.PixelType.FLOAT)
+        names = list(f.header()["channels"].keys())
+        return _rgba_first({
+            c: np.frombuffer(f.channel(c, pt), np.float32).reshape(h, w)
+            for c in names})
+    except ImportError:
+        pass
+    try:
+        os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+        import cv2
+        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        if img is not None:
+            img = np.asarray(img, np.float32)
+            if img.ndim == 3 and img.shape[2] >= 3:
+                img[..., :3] = img[..., 2::-1]       # cv2 loads BGR(A)
+            return img
+    except Exception:
+        pass
+    raise RuntimeError(
+        f"could not decode {path}: the built-in codec handles scanline "
+        "float/half EXRs with none/zip compression; for other flavours "
+        "install the OpenEXR bindings or convert to the npy clip layout")
 
 
 def load_legacy_exr_dir(path: str, num_frames: int = 10,
-                        inpaint_iterations: int = 8
+                        inpaint_iterations: int = 8,
+                        device: DeviceLike = None
                         ) -> List[Dict[str, np.ndarray]]:
-    """The reference's legacy EXR sequence directory: needs
-    `data/exr.py` (slice 10)."""
-    raise NotImplementedError(
-        f"{path}: legacy EXR sequences need the port's EXR codec "
-        "(data/exr.py), which comes with slice 10 (ROADMAP.md, queue A)")
+    """Load a reference legacy EXR sequence directory.
+
+    The EXR branch of `datasetVideo.py:172-258` /
+    `DataGeneratorVideo.convertToNumpy`: files ``high_tmp_%05d.exr`` (rgba),
+    ``high_tmp_%05d_depth.exr`` (normal+depth), ``high_tmp_%05d_fx.exr``
+    (ao), ``low_tmp_%05d{,_depth,_flow}.exr``; masks move to [-1, 1] and
+    flow is inpainted over the background (`ops/inpaint.inpaint_flow` on
+    ``device``, instead of cv2.INPAINT_NS).  Returns numpy clips.
+    """
+    import torch
+
+    from isosurfacesuperresolution_tpu_torch.ops.inpaint import (
+        inpaint_flow)
+
+    dev = resolve_device(device)
+    if not os.path.exists(os.path.join(path, "high_tmp_%05d.exr" % 0)):
+        raise FileNotFoundError(f"no high_tmp_*.exr in {path}")
+    highs, lows, flows = [], [], []
+    for j in range(num_frames):
+        hi_rgb = np.clip(_read_exr(
+            os.path.join(path, "high_tmp_%05d.exr" % j)), 0, 1)
+        hi_dn = _read_exr(os.path.join(path, "high_tmp_%05d_depth.exr" % j))
+        hi_fx = _read_exr(os.path.join(path, "high_tmp_%05d_fx.exr" % j))
+        high = np.concatenate(
+            [hi_rgb[..., 3:4] * 2 - 1, hi_dn[..., :4], hi_fx[..., 0:1]], -1)
+        lo_rgb = np.clip(_read_exr(
+            os.path.join(path, "low_tmp_%05d.exr" % j)), 0, 1)
+        lo_dn = _read_exr(os.path.join(path, "low_tmp_%05d_depth.exr" % j))
+        low = np.concatenate([lo_rgb[..., 3:4] * 2 - 1, lo_dn[..., :4]], -1)
+        fl = _read_exr(
+            os.path.join(path, "low_tmp_%05d_flow.exr" % j))[..., :2]
+        mask = (lo_rgb[..., 3:4] > 0).astype(np.float32)
+        fl = inpaint_flow(
+            torch.from_numpy(np.ascontiguousarray(fl, np.float32))[None].to(
+                dev),
+            torch.from_numpy(mask)[None].to(dev),
+            iterations=inpaint_iterations)[0].cpu().numpy()
+        highs.append(high.astype(np.float32))
+        lows.append(low.astype(np.float32))
+        flows.append(fl.astype(np.float32))
+    # one sequence a directory, as in JAX
+    return [{"high": np.stack(highs), "low": np.stack(lows),
+             "flow": np.stack(flows)}]

@@ -113,12 +113,16 @@ def render_single_frames(grid, num_frames: int, render_cfg, seed: int = 0,
 def load_image_folder(path: str, extensions=(".png", ".jpg", ".jpeg")
                       ) -> List[np.ndarray]:
     """div2k-style image folder -> list of (H, W, 3) float arrays in
-    [0, 1]."""
-    import imageio.v2 as imageio
+    [0, 1].  Decoded by Pillow, as JAX's imageio reader decodes PNG and
+    JPEG (palette images expand to their palette's mode)."""
+    from PIL import Image
     out = []
     for name in sorted(os.listdir(path)):
         if name.lower().endswith(extensions):
-            img = np.asarray(imageio.imread(os.path.join(path, name)))
+            with Image.open(os.path.join(path, name)) as im:
+                if im.mode == "P":
+                    im = im.convert(im.palette.mode)
+                img = np.asarray(im)
             out.append(img.astype(np.float32) / 255.0)
     if not out:
         raise FileNotFoundError(f"no images in {path}")

@@ -54,11 +54,12 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          val_range: Optional[float] = None, size_average: bool = True,
          full: bool = False):
     """SSIM on NHWC batches; ``val_range=None`` infers the dynamic range
-    from ``img1`` (255 or 1, offset for [-1, 1] inputs).  Variances are
-    clamped at 0 and the covariance by Cauchy-Schwarz, as in JAX."""
+    from ``img1`` (255 or 1, offset for [-1, 1] inputs) on its device, a
+    float32 tensor as JAX's, without a host sync.  Variances are clamped
+    at 0 and the covariance by Cauchy-Schwarz, as in JAX."""
     if val_range is None:
-        max_val = 255.0 if float(torch.max(img1)) > 128 else 1.0
-        min_val = -1.0 if float(torch.min(img1)) < -0.5 else 0.0
+        max_val = torch.where(torch.max(img1) > 128, 255.0, 1.0)
+        min_val = torch.where(torch.min(img1) < -0.5, -1.0, 0.0)
         L = max_val - min_val
     else:
         L = val_range
@@ -105,13 +106,14 @@ def msssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
             f"MS-SSIM needs images of at least {2 ** (levels - 1)} px per "
             f"side (got {min_side}); 5 halving levels run out of pixels")
     mssim, mcs = [], []
-    for _ in range(levels):
+    for level in range(levels):
         sim, cs = ssim(img1, img2, window_size=window_size,
                        val_range=val_range, full=True)
         mssim.append(sim)
         mcs.append(cs)
-        img1, img2 = (F.avg_pool2d(t.permute(0, 3, 1, 2), 2).permute(
-            0, 2, 3, 1) for t in (img1, img2))
+        if level + 1 < levels:     # (no pool after the last scale)
+            img1, img2 = (F.avg_pool2d(t.permute(0, 3, 1, 2), 2).permute(
+                0, 2, 3, 1) for t in (img1, img2))
     mssim = torch.stack(mssim)
     mcs = torch.stack(mcs)
     if normalize:

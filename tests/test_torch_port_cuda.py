@@ -1019,3 +1019,51 @@ def test_one_rank_nccl_sharded_sweep_and_cameras(nccl_group):
     for i in range(2):
         c = CameraParams.create(eyes[i], looks[i], ups[i])
         assert torch.equal(frames[i], render_frame_gbuffer(grid, c, c, cfg))
+
+
+@pytest.mark.cuda
+def test_pipe_server_on_the_card():
+    """The port's render server in a child process on the card, over the
+    pipe protocol: each frame bit for bit the in-process render of the
+    same camera (the same march kernel on the same card), and nothing but
+    frames on the stream."""
+    _need_card()
+    import os
+
+    from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+    from isosurfacesuperresolution_tpu_torch.infer.pipe_client import (
+        PipeRenderer)
+    from isosurfacesuperresolution_tpu_torch.render.api import (
+        render_frame_gbuffer)
+    from isosurfacesuperresolution_tpu_torch.render.camera import (
+        CameraParams)
+    from isosurfacesuperresolution_tpu_torch.render.params import (
+        RenderParams)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    eyes = [(0.0, 1.0, -1.7), (0.31, 0.95, -1.62)]
+    r = PipeRenderer.local_server("analytic:blobs:64", 96, 64,
+                                  renderer="sweep_pallas", cwd=root)
+    try:
+        frames = []
+        for eye in eyes:
+            r.send_command("cameraOrigin", ",".join(map(repr, eye)))
+            frames.append(r.render())
+        r.proc.stdin.write(b"exit\n")
+        r.proc.stdin.flush()
+        assert r.proc.wait(timeout=120) == 0
+        assert r.proc.stderr.read() == b""
+    finally:
+        r.close()
+    assert r.output[0] == "Enter Pipe mode and wait for commands"
+    grid = analytic.blobs_volume(64, device="cuda")
+    cfg = RenderConfig(width=96, height=64, ao_samples=0,
+                       renderer="sweep_pallas")
+    cams = [CameraParams.create(e, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 45.0)
+            for e in eyes]
+    for i, got in enumerate(frames):
+        want = render_frame_gbuffer(grid, cams[i], cams[max(i - 1, 0)], cfg,
+                                    RenderParams.from_config(cfg))
+        assert (got[..., 3] > 0.5).any()
+        np.testing.assert_array_equal(got, want.cpu().numpy())

@@ -6,6 +6,7 @@ to the plain version."""
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -13,8 +14,11 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from isosurfacesuperresolution_tpu_torch import kernels
+from isosurfacesuperresolution_tpu_torch.apps import convert_volume
+from isosurfacesuperresolution_tpu_torch.apps import main_psnr_stats
 from isosurfacesuperresolution_tpu_torch.apps import main_video_shaded
 from isosurfacesuperresolution_tpu_torch.apps import main_video_unshaded
+from isosurfacesuperresolution_tpu_torch.apps import render_cli
 from isosurfacesuperresolution_tpu_torch.config import (
     Config, ModelConfig, RenderConfig)
 from isosurfacesuperresolution_tpu_torch.infer import pipeline
@@ -30,10 +34,35 @@ from isosurfacesuperresolution_tpu_torch.render import sweep_tiled
 from isosurfacesuperresolution_tpu_torch.train.device_data import (
     DeviceVideoDataset)
 from isosurfacesuperresolution_tpu_torch.volume import analytic
+from isosurfacesuperresolution_tpu_torch.volume import importers
+from isosurfacesuperresolution_tpu_torch.volume import vdb
+from isosurfacesuperresolution_tpu_torch.volume.grid import BrickGrid
 from isosurfacesuperresolution_tpu_torch.volume.packed import (
     PackedAOAxisVolume, PackedAxisVolume, SparseBrickGrid)
+from isosurfacesuperresolution_tpu_torch.volume.vdb_write import write_vdb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_FILES = {}
+
+
+def _files() -> dict:
+    """Tiny volume files for the importers' entry points, written once
+    into a temporary directory at first use."""
+    if not _FILES:
+        d = tempfile.mkdtemp(prefix="guards_")
+        vol = (np.arange(8 ** 3) % 251).astype(np.uint8).reshape(8, 8, 8)
+        vol.transpose(2, 1, 0).tofile(os.path.join(d, "v.raw"))
+        with open(os.path.join(d, "v.dat"), "w") as f:
+            f.write("ObjectFileName: v.raw\nResolution: 8 8 8\n"
+                    "Format: UCHAR\n")
+        np.save(os.path.join(d, "v.npy"), vol / np.float32(255))
+        write_vdb(os.path.join(d, "v.vdb"), vol / np.float32(255))
+        importers.save_cvol(os.path.join(d, "v.cvol.npz"),
+                            BrickGrid.from_dense(vol, device="cpu"))
+        _FILES.update(dir=d, **{k: os.path.join(d, f"v.{k}")
+                                for k in ("dat", "npy", "vdb")},
+                      cvol=os.path.join(d, "v.cvol.npz"))
+    return _FILES
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -64,7 +93,12 @@ NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
                "apps.main_video_unshaded", "losses.lossnet",
                "train.trainer_shaded", "apps.main_video_shaded",
                "train.ocdbt", "parallel.mesh", "parallel.multihost",
-               "parallel.sharded_sweep")
+               "parallel.sharded_sweep", "native.build", "native.volumeio",
+               "native.vdbio", "volume.importers", "volume.vdb",
+               "volume.vdb_write", "data.exr", "bench.stats",
+               "infer.pipe_client", "apps.convert_volume",
+               "apps.render_cli", "apps.render_server",
+               "apps.main_psnr_stats")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -74,7 +108,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     names, bad = out.stdout.strip().splitlines()
     names = names.split()
-    assert len(names) >= 63          # every module of the port was imported
+    assert len(names) >= 78          # every module of the port was imported
     for mod in NEW_MODULES:
         assert f"isosurfacesuperresolution_tpu_torch.{mod}" in names
     assert bad == "[]"
@@ -108,6 +142,19 @@ ENTRY_POINTS = {
         ["--dataset", "analytic:sphere", "--runDir", os.devnull]),
     "LoadedModel.from_run_dir orbax": lambda: LoadedModel.from_run_dir(
         os.path.join(ROOT, "artifacts", "run00022", "run00022")),
+    "importers.import_raw": lambda: importers.import_raw(_files()["dat"]),
+    "importers.import_npy": lambda: importers.import_npy(_files()["npy"]),
+    "importers.load_cvol": lambda: importers.load_cvol(_files()["cvol"]),
+    "vdb.load_vdb": lambda: vdb.load_vdb(_files()["vdb"]),
+    "convert_volume.main": lambda: convert_volume.main(
+        [_files()["dat"], os.path.join(_files()["dir"], "o.cvol.npz")]),
+    "render_cli.main": lambda: render_cli.main(
+        ["--volume", "analytic:sphere:16", "--res", "16,16", "--output",
+         os.path.join(_files()["dir"], "cli")]),
+    "main_psnr_stats.main": lambda: main_psnr_stats.main(
+        ["--volumes", "analytic:sphere:16", "--numSequences", "1",
+         "--numFrames", "1", "--highRes", "144", "--aoSamples", "0",
+         "--output", os.path.join(_files()["dir"], "stats")]),
     "InferencePipeline": lambda: pipeline.InferencePipeline(
         EnhanceNet(ModelConfig(num_residual_blocks=1, num_features=8)),
         Config(model=ModelConfig(num_residual_blocks=1, num_features=8)),

@@ -132,9 +132,13 @@ def test_npy_dirs_load_as_in_jax(tmp_path):
 
 
 def test_exr_loaders_name_slice_10(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        PD.load_legacy_exr_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    """The EXR loaders slice 10 brought (held against JAX's in
+    test_torch_port_io.py): a directory without the legacy files raises
+    FileNotFoundError, and a file no codec decodes raises naming it."""
+    with pytest.raises(FileNotFoundError, match="high_tmp"):
+        PD.load_legacy_exr_dir(str(tmp_path), device="cpu")
+    (tmp_path / "x.exr").write_bytes(b"not an EXR image")
+    with pytest.raises(RuntimeError, match="could not decode"):
         PD._read_exr(str(tmp_path / "x.exr"))
 
 
@@ -366,12 +370,15 @@ def test_port_run_dir_loads_in_both_packages(trained):
     assert not np.array_equal(ep1, ep2)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--dataset", "volume.dat"], "slice 10"),
-    (["--dataset", "descriptor:list.txt"], "slice 10"),
-])
-def test_main_refuses_what_later_slices_bring(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("argv,missing", [
+    (["--dataset", "volume.dat"], "volume.dat"),
+    (["--dataset", "descriptor:list.txt"], "list.txt"),
+], ids=["argv0-slice 10", "argv1-slice 10"])
+def test_main_refuses_what_later_slices_bring(tmp_path, argv, missing):
+    """The datasets slice 10 brought reach the importers (held against
+    JAX's in test_torch_port_frontends.py): a missing file is reported
+    as missing, not refused."""
+    with pytest.raises(FileNotFoundError, match=missing):
         main_video_unshaded.main(TINY + ["--runDir", str(tmp_path)] + argv)
 
 
