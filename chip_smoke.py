@@ -203,9 +203,32 @@ seconds; any failure ends the run with a non-zero exit code:
    ``analytic:blobs:256`` (B1, B1-ao) and on the ``.dat`` (B2, B4), its
    seconds a volume, and card vs CPU on one 3-frame clip at 160^2 (the
    15-px border leaves MS-SSIM too few pixels at 128^2) within stated
-   bounds.
+   bounds;
+39. the viewer without a display (`apps.main_gui.Viewer`, 480x270 ->
+   1920x1080, ``renderer="sweep_pallas"``, on the main path's volume): 20
+   orbit frames each of run00017 (B1), run00017 with the bf16 phase tail
+   (B1, B5), the ground truth at 1080p, bicubic, focus of context (a 1080p
+   viewport render beside each frame) and temporal smoothing, each
+   frame's ms on the host clock with its copy to the host, 3 frames of
+   the normal channel; card vs CPU on small viewers (run00017's first
+   three frames, bilinear, the ground truth) within phase 5's bounds;
+40. `apps.main_comparison` at its defaults (1920x1080, x4, bilinear and
+   run00017, ``--renderer sweep_pallas``): its `timings.csv` printed;
+41. `apps.main_comparison_video`, 8 frames: the rotation script (run00017
+   and bilinear) and the ``v1`` preset (four scenes, labeled side by
+   side); without imageio on the card's machine each video is written as
+   PNGs through Pillow, which are read back and checked;
+42. `apps.image_vis`: one lens figure of run00017;
+43. `apps.main_psnr_allangles`, 4 cameras x 2 rolls, bilinear and
+   run00017, without AO (B1) and with the baked AO field, 64 samples
+   (B1-ao);
+44. `apps.vgg_analysis` at its defaults, `apps.discr_test` on
+   artifacts/run00020/run00020 (step 23; its clip on B1 and B1-ao), 4
+   clips of `SequenceConfig()` written as npy (B1, B1-ao), then
+   `apps.train_texenc` for 20 steps and `apps.adv_evidence` (bilinear,
+   run00017) on them.
 
-In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-38 the launch
+In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-44 the launch
 counts are zeroed just before each run and read just after it; in phases
 4-23 frames 3 onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
 of kernel numbers, the card line, and last the device line.  Float32
@@ -2301,6 +2324,248 @@ def stats_harness(dat: Path, work: Path, counters: dict, add) -> dict:
     return times
 
 
+# the viewer card vs CPU (phase 39): check_card_vs_cpu's bounds on the rgb
+MAX_VIEWER_FAR_SHARE = 0.01      # share of pixels with |diff| > 0.05
+MAX_VIEWER_MEDIAN = 1e-3
+
+
+def _viewer_frames(viewer, n: int, tag: str, counters: dict, add,
+                   want) -> tuple:
+    """``n`` orbit frames of ``viewer`` (20 px of drag a frame) as one path
+    run: (last frame, host ms a frame over frames 3-n).  Each frame ends
+    with its copy to the host, as the viewer's display takes it."""
+    import numpy as np
+    times = []
+
+    def run():
+        out = None
+        for i in range(n):
+            t = time.time()
+            viewer.camera.start_move()
+            viewer.camera.move(20, 0)
+            out = viewer.render_frame()
+            times.append(time.time() - t)
+        return out
+
+    rgb, _ = counted(run, tag, counters, want, add)
+    ms = 1e3 * sum(times[2:]) / max(n - 2, 1)
+    ok = (rgb.shape == (1080, 1920, 3) and bool(np.isfinite(rgb).all())
+          and float(rgb.max()) > 0.0)
+    log(f"[{tag}] {ms:.2f} ms a frame over frames 3-{n} (host clock, the "
+        f"copy to the host included; first frame {1e3 * times[0]:.1f} ms), "
+        f"rgb {rgb.shape} finite and not black: {ok}")
+    if not ok:
+        raise RuntimeError(f"[{tag}] bad frame")
+    return rgb, ms
+
+
+def viewer_and_apps(grid, lm, work: Path, counters: dict, add) -> dict:
+    """Phases 39-44: the viewer and the evaluation apps at full width."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from isosurfacesuperresolution_tpu_torch.apps import (
+        adv_evidence, discr_test, image_vis, main_comparison,
+        main_comparison_video, main_psnr_allangles, train_texenc,
+        vgg_analysis)
+    from isosurfacesuperresolution_tpu_torch.apps.main_gui import Viewer
+    from isosurfacesuperresolution_tpu_torch.config import RenderConfig
+    from isosurfacesuperresolution_tpu_torch.data.generation import (
+        SequenceConfig, generate_sequences)
+    from isosurfacesuperresolution_tpu_torch.infer.loadedmodel import (
+        LoadedModel)
+    from isosurfacesuperresolution_tpu_torch.volume import analytic
+
+    times = {}
+    run = str(ROOT / "artifacts" / "run00017")
+    with phase("39 the viewer headless: run00017, gt, bicubic, focus of "
+               "context, smoothing"):
+        m = lm.cfg.model
+        phase_lm = LoadedModel(lm.model, lm.cfg.replace(model=(
+            dataclasses.replace(m, compute_dtype="bfloat16",
+                                planar_phase_tail=True))))
+        viewer = Viewer(grid, {"run00017": lm, "run00017 phase": phase_lm},
+                        res_x=480, res_y=270, isovalue=0.5,
+                        renderer="sweep_pallas")
+        steps = (("run00017", {}, {"sweep_march": 20}),
+                 ("run00017 phase", {},
+                  {"sweep_march": 20, "phase_conv": 20}),
+                 ("gt", {}, {"sweep_march": 20}),
+                 ("bicubic", {}, {"sweep_march": 20}),
+                 ("run00017", {"foc_enabled": True,
+                               "foc_center": (960, 540)},
+                  {"sweep_march": 40}),
+                 ("run00017", {"temporal_smoothing": 0.5},
+                  {"sweep_march": 20}))
+        for mode, knobs, want in steps:
+            viewer.set_mode(mode)
+            viewer.foc_enabled, viewer.temporal_smoothing = False, 0.0
+            for k, v in knobs.items():
+                setattr(viewer, k, v)
+            tag = "viewer " + mode + "".join(f" {k}" for k in knobs)
+            _, ms = _viewer_frames(viewer, 20, tag, counters, add, want)
+            times[tag + " ms"] = ms
+        viewer.set_mode("run00017")
+        viewer.channel = "normal"
+        _viewer_frames(viewer, 3, "viewer run00017 normal channel",
+                       counters, add, {"sweep_march": 3})
+        del viewer
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            g = analytic.blobs_volume(64, num_blobs=8, device=dev)
+            lm.model.to(dev)
+            v = Viewer(g, {"run00017": lm}, res_x=64, res_y=48,
+                       isovalue=0.5, renderer="sweep_pallas")
+            v.camera.zoom(-3)
+            frames = []
+            for mode in ("run00017", "run00017", "run00017", "bilinear",
+                         "gt"):
+                v.mode = mode
+                v.camera.start_move()
+                v.camera.move(10, 3)
+                frames.append(torch.from_numpy(v.render_frame()))
+            outs[dev] = frames
+        lm.model.to("cuda")
+        for i, mode in enumerate(("run00017 frame 1", "run00017 frame 2",
+                                  "run00017 frame 3", "bilinear", "gt")):
+            d = (outs["cuda"][i] - outs["cpu"][i]).abs()
+            far = float((d > 0.05).float().mean())
+            med = float(d.median())
+            lit = float((outs["cpu"][i] > 0).any(-1).float().mean())
+            log(f"[viewer card vs CPU {mode}] 64x48 -> 256x192: rgb median "
+                f"|diff| {med:.2e}, share > 0.05: {far:.4f} (bounds "
+                f"{MAX_VIEWER_MEDIAN}, {MAX_VIEWER_FAR_SHARE}); max "
+                f"{float(d.max()):.2e}, mean {float(d.mean()):.2e}, lit "
+                f"pixels {lit:.3f}")
+            if far > MAX_VIEWER_FAR_SHARE or med > MAX_VIEWER_MEDIAN:
+                raise RuntimeError(f"viewer card and CPU disagree ({mode})")
+
+    with phase("40 main_comparison at its defaults (1920x1080, x4)"):
+        out = work / "cmp"
+        rows, sec = counted(lambda: main_comparison.main(
+            ["--models", "bilinear", run, "--renderer", "sweep_pallas",
+             "--saveImages", "--output", str(out)]),
+            "main_comparison", counters, {"sweep_march"}, add)
+        csv = (out / "timings.csv").read_text()
+        log(f"[main_comparison] {sec:.1f} s; timings.csv:\n{csv.strip()}")
+        for name, rt, nt, tt in rows:
+            times[f"comparison {name} total ms"] = 1e3 * tt
+            times[f"comparison {name} rendering ms"] = 1e3 * rt
+        pngs = sorted(p.name for p in out.glob("*.png"))
+        if (len(rows) != 2 or pngs != ["blobs_bilinear.png",
+                                       "blobs_run00017.png"]
+                or not all(math.isfinite(tt) and tt > 0
+                           for _, _, _, tt in rows)):
+            raise RuntimeError(f"main_comparison: rows {rows}, {pngs}")
+
+    with phase("41 main_comparison_video: 8 frames, a script and a preset"):
+        out = work / "video"
+        for tag, argv in (
+                ("script", ["--models", "bilinear", run, "--frames", "8"]),
+                ("preset v1", ["--preset", "v1", "--models", "bilinear",
+                               run, "--frames", "8"])):
+            written, sec = counted(lambda: main_comparison_video.main(
+                argv + ["--renderer", "sweep_pallas", "--output",
+                        str(out)]),
+                f"main_comparison_video {tag}", counters, {"sweep_march"},
+                add)
+            times[f"video {tag}"] = sec
+            for d in written:
+                frames = sorted(Path(d).glob("*.png"))
+                imgs = [np.asarray(Image.open(f)) for f in frames]
+                ok = (len(imgs) == 8 and all(i.shape == imgs[0].shape
+                                             and i.max() > 0 for i in imgs))
+                log(f"[main_comparison_video {tag}] {Path(d).name}: "
+                    f"{len(imgs)} PNGs {imgs[0].shape if imgs else None}, "
+                    f"not black: {ok}")
+                if not ok:
+                    raise RuntimeError(f"main_comparison_video {tag}: {d}")
+            if len(written) != (2 if tag == "script" else 4):
+                raise RuntimeError(f"main_comparison_video {tag}: wrote "
+                                   f"{written}")
+
+    with phase("42 image_vis: one figure"):
+        paths, sec = counted(lambda: image_vis.main(
+            ["--models", run, "--renderer", "sweep_pallas", "--output",
+             str(work / "fig")]), "image_vis", counters, {"sweep_march"},
+            add)
+        fig = np.asarray(Image.open(paths[0]))
+        log(f"[image_vis] {sec:.2f} s, {Path(paths[0]).name} {fig.shape}")
+        if fig.shape != (480, 480 + 3 * 96, 3) or fig.max() == 0:
+            raise RuntimeError(f"image_vis: figure {fig.shape}")
+
+    with phase("43 main_psnr_allangles: 4 cameras x 2 rolls, without and "
+               "with the baked AO field"):
+        for ao, need in ((0, {"sweep_march"}), (64, {"sweep_march_ao"})):
+            out = work / f"allangles_{ao}"
+            _, sec = counted(lambda: main_psnr_allangles.main(
+                ["--models", "bilinear", run, "--cameras", "4", "--rolls",
+                 "2", "--aoSamples", str(ao), "--renderer", "sweep_pallas",
+                 "--output", str(out)]),
+                f"main_psnr_allangles ao {ao}", counters, need, add)
+            times[f"allangles ao {ao}"] = sec
+            head, rows = _read_tsv(out / "allangles_torus.tsv")
+            ok = (sorted(rows) == ["bilinear", "run00017"]
+                  and all(math.isfinite(v) for r in rows.values()
+                          for v in r) and all(r[-1] == 0
+                                              for r in rows.values()))
+            log(f"[main_psnr_allangles ao {ao}] {sec:.2f} s for 8 views x "
+                f"2 models; PSNR normal / color mean: "
+                f"{ {k: (r[2], r[6]) for k, r in rows.items()} }; ok: {ok}")
+            if not ok:
+                raise RuntimeError(f"main_psnr_allangles ao {ao}: {rows}")
+
+    with phase("44 vgg_analysis, discr_test on run00020, train_texenc and "
+               "adv_evidence on kernel-made clips"):
+        table, sec = counted(lambda: vgg_analysis.main(
+            ["--renderer", "sweep_pallas"]), "vgg_analysis", counters,
+            {"sweep_march"}, add)
+        times["vgg_analysis"] = sec
+        log(f"[vgg_analysis] {sec:.2f} s, 16 images at 128^2, 12 layers: "
+            f"{[(k, round(w, 4)) for k, _, w in table]}")
+        if len(table) != 12 or not all(math.isfinite(w) and w > 0
+                                       for _, _, w in table):
+            raise RuntimeError("vgg_analysis: bad table")
+        (epoch, logits), sec = counted(lambda: discr_test.main(
+            [str(ROOT / "artifacts" / "run00020" / "run00020"),
+             "--renderer", "sweep_pallas"]), "discr_test", counters,
+            {"sweep_march", "sweep_march_ao"}, add)
+        times["discr_test"] = sec
+        log(f"[discr_test] {sec:.2f} s, epoch {epoch}, logits {logits}")
+        if epoch != 23 or len(logits) != 8 or not all(
+                math.isfinite(v) for _, _, v in logits):
+            raise RuntimeError("discr_test: bad logits")
+        clips = work / "clips"
+        _, sec = counted(lambda: generate_sequences(
+            [(grid, (0.45, 0.55))], 4, SequenceConfig(),
+            RenderConfig(renderer="sweep_pallas", step_voxels=0.5), seed=44,
+            out_dir=str(clips)), "clips for train_texenc", counters,
+            {"sweep_march": 40, "sweep_march_ao": 40}, add)
+        times["4 clips"] = sec
+        texenc = work / "texenc.npz"
+        (losses, _), sec = counted(lambda: train_texenc.main(
+            ["--dataset", str(clips), "--samples", "200", "--steps", "20",
+             "--output", str(texenc)]), "train_texenc", counters, {}, add)
+        times["train_texenc 20 steps"] = sec
+        log(f"[train_texenc] {sec:.2f} s for 20 steps (batch 32, crops "
+            f"128^2) and the crops; losses {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}")
+        if not texenc.exists() or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError("train_texenc: no encoder or bad losses")
+        rows, sec = counted(lambda: adv_evidence.main(
+            ["--dataset", str(clips), "--models", "bilinear", run,
+             "--samples", "200", "--output", str(work / "adv")]),
+            "adv_evidence", counters, {}, add)
+        times["adv_evidence"] = sec
+        log(f"[adv_evidence] {sec:.2f} s: {rows}")
+        if ([r[0] for r in rows] != ["bilinear", "run00017"] or not all(
+                math.isfinite(v) for r in rows for v in r[1:])
+                or not (work / "adv" / "panels.png").exists()):
+            raise RuntimeError("adv_evidence: bad table or no panels")
+    return times
+
+
 def path_counters() -> dict:
     """Each kernel's launch count: name -> (object, attribute); each
     wrapper adds one where it launches its kernel."""
@@ -3520,13 +3785,16 @@ def main() -> int:
         io_times = {**io["times"], **pipe_server(counters, add),
                     **cli_and_converter(io["dat"], work, counters, add),
                     **stats_harness(io["dat"], work, counters, add)}
+        log("phases 35-38, seconds (ms where named): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in io_times.items()))
+        app_times = viewer_and_apps(grid, lm, work, counters, add)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log("phases 35-38, seconds (ms where named): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in io_times.items()))
+    log("phases 39-44, seconds (ms where named): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in app_times.items()))
 
     log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
-        f"18, 19, 21, 22 and 25-38: {path_launches}")
+        f"18, 19, 21, 22 and 25-44: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),

@@ -103,6 +103,9 @@ class ShadingConfig:
     inverse_ao: bool = False
     background: Tuple[float, float, float] = (0.0, 0.0, 0.0)
 
+    def replace(self, **kw) -> "ShadingConfig":
+        return dataclasses.replace(self, **kw)
+
 
 @dataclass(frozen=True)
 class ModelConfig:

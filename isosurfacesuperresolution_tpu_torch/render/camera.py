@@ -1,4 +1,5 @@
-"""Cameras: view/projection matrices, projection and pixel rays.
+"""Cameras: view/projection matrices, projection and pixel rays, and the
+viewer's orbit camera (`Orientation`, `OrbitCamera`).
 
 Counterpart of the JAX package's `render/camera.py`, with the same
 conventions: right-handed world, the view matrix maps world -> camera with
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from enum import Enum
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -122,6 +124,98 @@ def norm3(v: torch.Tensor) -> torch.Tensor:
     """Euclidean length over the last axis of size 3, summed in order."""
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
                       + v[..., 2] * v[..., 2])
+
+
+class Orientation(Enum):
+    """Which world axis is "up" for the orbit camera: each value carries
+    (up vector, 1-indexed signed permutation of the orbit's coordinates,
+    whether the yaw is inverted)."""
+
+    Xp = 1, (1, 0, 0), (2, -1, -3), True
+    Xm = 2, (-1, 0, 0), (-2, 1, 3), False
+    Yp = 3, (0, 1, 0), (1, 2, 3), False
+    Ym = 4, (0, -1, 0), (-1, -2, -3), True
+    Zp = 5, (0, 0, 1), (-3, -1, 2), False
+    Zm = 6, (0, 0, -1), (3, 1, -2), True
+
+    def __new__(cls, value, up, permute, inv_yaw):
+        obj = object.__new__(cls)
+        obj._value_ = value
+        obj.up = up
+        obj.permute = permute
+        obj.inv_yaw = inv_yaw
+        return obj
+
+
+class OrbitCamera:
+    """The viewer's interactive camera: pitch, yaw and zoom around a
+    look-at point.  A drag moves by ``speed`` radians a pixel from the
+    pose at `start_move`, the pitch clamped to +-80 degrees; the zoom is
+    exponential, ``distance = base * zoom_speed ** zoom_value``.  Host
+    state only: `params` makes the renderer's `CameraParams`."""
+
+    def __init__(self, res_x: int, res_y: int,
+                 origin: Sequence[float] = (0.0, 1.0, -1.7),
+                 fov_y_degrees: float = 45.0):
+        self.res_x = res_x
+        self.res_y = res_y
+        self.look_at_pt = [0.0, 0.0, 0.0]
+        self.speed = 0.01
+        self.zoom_speed = 1.1
+        self.fov_y_degrees = fov_y_degrees
+        self.orientation = Orientation.Yp
+        d, p, yaw = self.to_angles(origin)
+        self.current_distance = d
+        self.current_pitch = p
+        self.current_yaw = yaw
+        self.base_distance = d
+        self.zoom_value = 0.0
+        self._old = (d, p, yaw)
+
+    @staticmethod
+    def to_angles(pos: Sequence[float]) -> Tuple[float, float, float]:
+        """(distance, pitch, yaw) of a position around the origin."""
+        length = math.sqrt(pos[0] ** 2 + pos[1] ** 2 + pos[2] ** 2)
+        return length, math.asin(pos[1] / length), math.atan2(pos[2],
+                                                              pos[0])
+
+    @staticmethod
+    def from_angles(length: float, pitch: float, yaw: float) -> list:
+        return [math.cos(pitch) * math.cos(yaw) * length,
+                math.sin(pitch) * length,
+                math.cos(pitch) * math.sin(yaw) * length]
+
+    def get_origin(self) -> list:
+        """The eye, the orbit's coordinates permuted by the orientation."""
+        yaw = self.current_yaw * (-1 if self.orientation.inv_yaw else 1)
+        o1 = self.from_angles(self.current_distance, self.current_pitch, yaw)
+        return [o1[abs(p) - 1] * (1 if p > 0 else -1)
+                for p in self.orientation.permute]
+
+    def get_up(self) -> Tuple[float, float, float]:
+        return self.orientation.up
+
+    def start_move(self):
+        self._old = (self.current_distance, self.current_pitch,
+                     self.current_yaw)
+
+    def move(self, dx: float, dy: float):
+        _, old_pitch, old_yaw = self._old
+        self.current_pitch = max(math.radians(-80),
+                                 min(math.radians(80),
+                                     old_pitch + self.speed * dy))
+        self.current_yaw = old_yaw + self.speed * dx
+
+    def zoom(self, delta: float):
+        self.zoom_value += delta
+        self.current_distance = (self.base_distance
+                                 * self.zoom_speed ** self.zoom_value)
+
+    def params(self, z_near: float = 0.1, z_far: float = 10.0
+               ) -> CameraParams:
+        return CameraParams.create(self.get_origin(), self.look_at_pt,
+                                   self.get_up(), self.fov_y_degrees,
+                                   z_near, z_far)
 
 
 def random_sphere_camera(rng: np.random.RandomState,

@@ -13,6 +13,15 @@ element, and a 32-bit draw is ``bits1 ^ bits2``.
 `sinf` and `cosf` are the C library's single-precision functions, which
 XLA's CPU backend calls for ``jnp.sin`` / ``jnp.cos`` on float32: a
 correctly rounded sine differs from them in about 1% of the arguments.
+
+`normal` is ``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)``
+of a uniform draw ``u`` on (-1, 1), with ``erf_inv`` XLA's float32
+polynomial (M. Giles, "Approximating the erfinv function", 2010) in
+float32 numpy.  XLA takes ``log1p`` from its own approximation and numpy
+from the C library, so a draw may differ from JAX's in its last bits
+(a few ulps; `tests/test_torch_port_texenc.py` states the bound).
+`randint` is ``jax.random.randint`` for int32: two 32-bit draws from a
+split key, combined modulo the span, bit for bit.
 """
 
 from __future__ import annotations
@@ -72,13 +81,66 @@ def random_bits(key: Tuple[int, int], shape: Tuple[int, ...]) -> np.ndarray:
     return (b0 ^ b1).reshape(shape)
 
 
-def uniform(key: Tuple[int, int], shape: Tuple[int, ...]) -> np.ndarray:
-    """float32 draws in [0, 1) of ``shape``, as ``jax.random.uniform``:
-    the 23 high bits of a draw as the mantissa of a float in [1, 2),
-    minus 1."""
+def uniform(key: Tuple[int, int], shape: Tuple[int, ...],
+            minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """float32 draws in [minval, maxval) of ``shape``, as
+    ``jax.random.uniform``: the 23 high bits of a draw as the mantissa of
+    a float in [1, 2), minus 1, scaled and shifted in float32."""
     bits = random_bits(key, shape)
     f = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32)
-    return np.maximum(np.float32(0.0), f - np.float32(1.0))
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return np.maximum(lo, (f - np.float32(1.0)) * (hi - lo) + lo)
+
+
+# XLA's float32 erf_inv: Giles' polynomials in w = -log1p(-x^2), one for
+# w < 5 (in w - 2.5) and one beyond (in sqrt(w) - 3)
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: np.ndarray) -> np.ndarray:
+    """The inverse error function in float32, by XLA's polynomial;
+    +-inf at +-1."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = -np.log1p(x * -x)
+        small = w < np.float32(5.0)
+        w = np.where(small, w - np.float32(2.5),
+                     np.sqrt(w) - np.float32(3.0)).astype(np.float32)
+        p = np.where(small, np.float32(_ERFINV_SMALL[0]),
+                     np.float32(_ERFINV_LARGE[0])).astype(np.float32)
+        for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+            p = np.where(small, np.float32(a), np.float32(b)) + p * w
+        out = (p * x).astype(np.float32)
+    return np.where(np.abs(x) == 1, x * np.float32(np.inf), out)
+
+
+def normal(key: Tuple[int, int], shape: Tuple[int, ...]) -> np.ndarray:
+    """Standard normal float32 draws of ``shape``, as
+    ``jax.random.normal``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, lo, 1.0)
+    return (np.float32(np.sqrt(2)) * erf_inv(u)).astype(np.float32)
+
+
+def randint(key: Tuple[int, int], shape: Tuple[int, ...], minval: int,
+            maxval: int) -> np.ndarray:
+    """int32 draws in [minval, maxval) of ``shape``, as
+    ``jax.random.randint``: 32 high and 32 low bits from the two halves
+    of ``split(key)``, reduced modulo the span in uint32."""
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = _U32(1 if maxval <= minval else (maxval - minval) % 2 ** 32)
+    with np.errstate(over="ignore"):
+        multiplier = _U32(2 ** 16) % span
+        multiplier = (multiplier * multiplier) % span
+        offset = (higher % span) * multiplier + lower % span
+    offset = offset % span
+    return (np.int64(minval) + offset.astype(np.int64)).astype(np.int32)
 
 
 @functools.cache

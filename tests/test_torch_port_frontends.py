@@ -26,6 +26,9 @@ whose hit flips (a grazing sample within float32 rounding of the
 isovalue, seen on a uint8 torus).
 """
 
+# first: builds the JAX package's native readers once, under a lock
+import tests._torch_port_native  # noqa: F401,I001
+
 import os
 import subprocess
 import sys

@@ -14,11 +14,22 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from isosurfacesuperresolution_tpu_torch import kernels
+from isosurfacesuperresolution_tpu_torch.apps import adv_evidence
 from isosurfacesuperresolution_tpu_torch.apps import convert_volume
+from isosurfacesuperresolution_tpu_torch.apps import dataset_viewer
+from isosurfacesuperresolution_tpu_torch.apps import discr_test
+from isosurfacesuperresolution_tpu_torch.apps import image_vis
+from isosurfacesuperresolution_tpu_torch.apps import main_comparison
+from isosurfacesuperresolution_tpu_torch.apps import main_comparison_video
+from isosurfacesuperresolution_tpu_torch.apps import main_gui
+from isosurfacesuperresolution_tpu_torch.apps import main_psnr_allangles
+from isosurfacesuperresolution_tpu_torch.apps import main_psnr_crops
 from isosurfacesuperresolution_tpu_torch.apps import main_psnr_stats
 from isosurfacesuperresolution_tpu_torch.apps import main_video_shaded
 from isosurfacesuperresolution_tpu_torch.apps import main_video_unshaded
 from isosurfacesuperresolution_tpu_torch.apps import render_cli
+from isosurfacesuperresolution_tpu_torch.apps import train_texenc
+from isosurfacesuperresolution_tpu_torch.apps import vgg_analysis
 from isosurfacesuperresolution_tpu_torch.config import (
     Config, ModelConfig, RenderConfig)
 from isosurfacesuperresolution_tpu_torch.infer import pipeline
@@ -98,7 +109,13 @@ NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
                "volume.vdb_write", "data.exr", "bench.stats",
                "infer.pipe_client", "apps.convert_volume",
                "apps.render_cli", "apps.render_server",
-               "apps.main_psnr_stats")
+               "apps.main_psnr_stats", "utils.profiling", "apps.main_gui",
+               "apps.image_vis", "apps.main_comparison",
+               "apps.main_comparison_video", "apps.main_psnr_allangles",
+               "apps.main_psnr_crops", "apps.vgg_analysis",
+               "apps.discr_test", "losses.learned_features",
+               "apps.train_texenc", "apps.adv_evidence",
+               "apps.dataset_viewer", "apps.delete_empty_runs")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -155,6 +172,41 @@ ENTRY_POINTS = {
         ["--volumes", "analytic:sphere:16", "--numSequences", "1",
          "--numFrames", "1", "--highRes", "144", "--aoSamples", "0",
          "--output", os.path.join(_files()["dir"], "stats")]),
+    "main_gui.main": lambda: main_gui.main(
+        ["--volume", "analytic:sphere:16", "--resX", "8", "--resY", "8",
+         "--frames", "1", "--output", os.path.join(_files()["dir"], "gui")]),
+    "image_vis.main": lambda: image_vis.main(
+        ["--volume", "analytic:sphere:16", "--lowRes", "8", "--output",
+         os.path.join(_files()["dir"], "fig")]),
+    "main_comparison.main": lambda: main_comparison.main(
+        ["--volume", "analytic:sphere:16", "--width", "32", "--height", "32",
+         "--warmup", "1", "--timed", "1", "--output",
+         os.path.join(_files()["dir"], "cmp")]),
+    "main_comparison_video.main": lambda: main_comparison_video.main(
+        ["--volume", "analytic:sphere:16", "--frames", "1", "--lowRes", "8",
+         "--pngs", "--output", os.path.join(_files()["dir"], "vid")]),
+    "main_psnr_allangles.main": lambda: main_psnr_allangles.main(
+        ["--volume", "analytic:sphere:16", "--cameras", "1", "--rolls", "1",
+         "--lowRes", "8", "--output", os.path.join(_files()["dir"], "aa")]),
+    "main_psnr_crops.main": lambda: main_psnr_crops.main(
+        ["--dataset", _files()["dir"]]),
+    "vgg_analysis.main": lambda: vgg_analysis.main(
+        ["--volume", "analytic:sphere:16", "--images", "1", "--res", "16",
+         "--layers", "2"]),
+    "discr_test.main": lambda: discr_test.main(
+        [os.path.join(ROOT, "artifacts", "run00020", "run00020"),
+         "--volume", "analytic:sphere:16", "--crops", "1"]),
+    "train_texenc.main": lambda: train_texenc.main(
+        ["--dataset", _files()["dir"], "--steps", "1", "--output",
+         os.path.join(_files()["dir"], "texenc.npz")]),
+    "adv_evidence.main": lambda: adv_evidence.main(
+        ["--dataset", _files()["dir"], "--models", "bilinear", "--output",
+         os.path.join(_files()["dir"], "adv")]),
+    "dataset_viewer.main": lambda: dataset_viewer.main(
+        [_files()["dir"], "--output", os.path.join(_files()["dir"], "pv")]),
+    "dataset_viewer.clip_preview": lambda: dataset_viewer.clip_preview(
+        {"high": np.zeros((1, 16, 16, 6), np.float32),
+         "flow": np.zeros((1, 4, 4, 2), np.float32)}),
     "InferencePipeline": lambda: pipeline.InferencePipeline(
         EnhanceNet(ModelConfig(num_residual_blocks=1, num_features=8)),
         Config(model=ModelConfig(num_residual_blocks=1, num_features=8)),

@@ -13,6 +13,9 @@ legacy loader inpaints the flow through `ops/inpaint` (held to JAX's at
 1e-6 in `test_torch_port_ops.py`): 1e-6, everything else equal.
 """
 
+# first: builds the JAX package's native readers once, under a lock
+import tests._torch_port_native  # noqa: F401,I001
+
 import os
 
 import numpy as np

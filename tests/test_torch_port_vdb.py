@@ -11,6 +11,9 @@ packages, or fails with the same error message; half-float files decode
 to the float16 values exactly.
 """
 
+# first: builds the JAX package's native readers once, under a lock
+import tests._torch_port_native as jax_native  # noqa: I001
+
 import struct
 import subprocess
 import sys
@@ -26,6 +29,18 @@ from isosurfacesuperresolution_tpu_torch.volume import vdb as PV
 from isosurfacesuperresolution_tpu_torch.volume import vdb_write as PW
 
 ZIP, MASK = fx.ZIP, fx.MASK
+
+
+def _jax_vdbio():
+    """The JAX package's native decoder; the test fails, naming it, when
+    it could not be loaded (it does not skip)."""
+    if fx.vdbio is None:
+        pytest.fail("the JAX package's native .vdb decoder "
+                    "(isosurfacesuperresolution_tpu/native/_vdbio.so) could "
+                    "not be loaded: "
+                    + (str(jax_native.ERRORS) if jax_native.ERRORS else
+                       "it was built, but importing it raised"))
+    return fx.vdbio
 
 
 def _volume(seed=0, shape=(21, 17, 10)):
@@ -48,7 +63,7 @@ def test_write_vdb_bytes_equal_jax(tmp_path, compression, half, origin):
     assert blob == (tmp_path / "j.vdb").read_bytes()
     # each package's decoder reads the file back
     want = v.astype(np.float16).astype(np.float32) if half else v
-    for load in (p_vdbio.load, fx.vdbio.load):
+    for load in (p_vdbio.load, _jax_vdbio().load):
         dense, vox = load(str(tmp_path / "p.vdb"))
         assert vox == (0.5, 0.5, 0.5)
         # the active bounding box: trailing/leading all-zero planes drop
@@ -178,7 +193,7 @@ def test_spec_fixtures_decode_like_jax(tmp_path, name):
     path = tmp_path / f"{name}.vdb"
     path.write_bytes(SPEC[name])
     got = _decode(p_vdbio.load, str(path))
-    want = _decode(fx.vdbio.load, str(path))
+    want = _decode(_jax_vdbio().load, str(path))
     assert got[0] == want[0] == ("error" if name in FAILING else "ok")
     if got[0] == "ok":
         np.testing.assert_array_equal(got[1], want[1])
