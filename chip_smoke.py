@@ -226,9 +226,21 @@ seconds; any failure ends the run with a non-zero exit code:
    artifacts/run00020/run00020 (step 23; its clip on B1 and B1-ao), 4
    clips of `SequenceConfig()` written as npy (B1, B1-ao), then
    `apps.train_texenc` for 20 steps and `apps.adv_evidence` (bilinear,
-   run00017) on them.
+   run00017) on them;
+45. JAX's orbax runs resumed on the card: artifacts/run00022/run00022
+   (step 70) and artifacts/run00020/run00020 (step 23, its critic and the
+   critic's Adam state too) restored in full into fresh full-width train
+   states of their config.json (seconds to restore; every tensor bit for
+   bit a CPU restore, step and counts), card vs CPU on the first step (or
+   D+G round) after the restore under phase 31's bounds, 20 more on
+   phase 29's clips (ms a step or round, peak memory, losses finite);
+   then `apps.main_video_unshaded --restore` on run00022 with its own
+   flags for epoch 71, cut to 64 crops of 2 clips of 3 frames at crop
+   16, and its TensorBoard event file read back (every record's CRCs,
+   the version record, the four scalars at step 71, finite, the learning
+   rate of epoch 71, the image panels).
 
-In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-44 the launch
+In phases 4, 6, 7, 10, 11, 15, 16, 18, 19, 21-23 and 25-45 the launch
 counts are zeroed just before each run and read just after it; in phases
 4-23 frames 3 onwards must make no host sync (`torch.cuda.set_sync_debug_mode`).  Then one JSON line
 of kernel numbers, the card line, and last the device line.  Float32
@@ -2566,6 +2578,307 @@ def viewer_and_apps(grid, lm, work: Path, counters: dict, add) -> dict:
     return times
 
 
+# --------------------------------------------------------------------------
+# phase 45: resuming JAX's runs
+# --------------------------------------------------------------------------
+
+def _pb_fields(buf: bytes) -> list:
+    """(field number, value) of each field of a protobuf message: an int
+    for a varint, bytes for a length-delimited or a fixed-size field."""
+    out, pos = [], 0
+
+    def varint():
+        nonlocal pos
+        n = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            n |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return n
+    while pos < len(buf):
+        key = varint()
+        wire = key & 7
+        if wire == 0:
+            value = varint()
+        elif wire == 2:
+            n = varint()
+            value = buf[pos:pos + n]
+            pos += n
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            value = buf[pos:pos + n]
+            pos += n
+        else:
+            raise ValueError(f"protobuf wire type {wire}")
+        out.append((key >> 3, value))
+    return out
+
+
+def read_event_file(path) -> tuple:
+    """A TensorBoard event file read back without tensorboard, every
+    record's two masked CRC-32Cs checked -> (file_version, [(step, tag,
+    value)]), a value a float for a scalar and (height, width,
+    colorspace, PNG bytes) for an image."""
+    import struct
+
+    from isosurfacesuperresolution_tpu_torch.utils.tensorboard import (
+        masked_crc)
+    data = Path(path).read_bytes()
+    pos, version, values = 0, None, []
+    while pos < len(data):
+        head = data[pos:pos + 8]
+        n = struct.unpack("<Q", head)[0]
+        body = data[pos + 12:pos + 12 + n]
+        crcs = struct.unpack("<I", data[pos + 8:pos + 12])[0], struct.unpack(
+            "<I", data[pos + 12 + n:pos + 16 + n])[0]
+        if crcs != (masked_crc(head), masked_crc(body)):
+            raise RuntimeError(f"{path}: the record at byte {pos} fails its "
+                               f"CRC")
+        pos += 16 + n
+        event = dict(_pb_fields(body))
+        if 3 in event:
+            version = event[3].decode()
+        for _, value in _pb_fields(event.get(5, b"")):
+            v = dict(_pb_fields(value))
+            if 2 in v:
+                val = struct.unpack("<f", v[2])[0]
+            else:
+                im = dict(_pb_fields(v[4]))
+                val = (im[1], im[2], im[3], im[4])
+            values.append((event.get(2, 0), v[1].decode(), val))
+    return version, values
+
+
+def resume_runs(seqs, counters: dict, add) -> dict:
+    """Phase 45: JAX's orbax runs resumed on the card in full (parameters,
+    optimizer states, step), card vs CPU on the first step after the
+    restore, 20 more steps on phase 29's clips, and `main_video_unshaded
+    --restore` on run00022 for one cut epoch with its event file read
+    back.  Returns seconds and ms by name."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from isosurfacesuperresolution_tpu_torch.apps import main_video_unshaded
+    from isosurfacesuperresolution_tpu_torch.config import config_from_json
+    from isosurfacesuperresolution_tpu_torch.data.dataset import (
+        DatasetFromSamples, VideoDataset)
+    from isosurfacesuperresolution_tpu_torch.losses.lossnet_unshaded import (
+        LossNetUnshaded)
+    from isosurfacesuperresolution_tpu_torch.models.generators import (
+        create_network)
+    from isosurfacesuperresolution_tpu_torch.train import trainer as TR
+    from isosurfacesuperresolution_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+    from isosurfacesuperresolution_tpu_torch.train.device_data import (
+        DeviceVideoDataset)
+    from isosurfacesuperresolution_tpu_torch.utils import jax_prng
+
+    times = {}
+
+    def restored(cfg, run, device):
+        """A fresh full-width state of ``cfg`` on ``device`` (weights
+        other than the run's), the run's newest step restored into it ->
+        (state, criterion, epoch, seconds of the restore)."""
+        gen = torch.Generator().manual_seed(45)
+        model = create_network(cfg.model, generator=gen).to(device)
+        crit = LossNetUnshaded(cfg.loss, high_res=cfg.train.crop_size
+                               * cfg.model.upscale_factor)
+        spec = TR.make_optimizer(cfg)
+        state = TR.create_train_state(
+            cfg, model, crit, spec, gen,
+            discr_optimizer=spec if cfg.train.adv_training else None)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.time()
+        state, epoch = CheckpointManager(str(run)).restore(state)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return state, crit, epoch, time.time() - t
+
+    def tensors(state, moments: bool = True) -> dict:
+        out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+        out.update({f"discr.{k}": v for k, v in
+                    state.discriminators.state_dict().items()})
+        for tag, opt in (("opt", state.optimizer),
+                         ("dopt", state.discr_optimizer)):
+            if opt is not None and moments:
+                for m, ts in opt.state.items():
+                    out.update({f"{tag}.{m}.{n}": t
+                                for n, t in zip(opt.names, ts)})
+        return out
+
+    def first_round(cfg, state, crit, batch):
+        """The first step after the restore: the plain step, or the
+        discriminator then the generator step -> the losses."""
+        if cfg.train.adv_training:
+            d_step, g_step = TR.make_adv_train_steps(cfg, state.model, crit)
+            _, dl, _, _ = d_step(state, *batch, jax_prng.prng_key(45))
+            _, gl = g_step(state, *batch)
+            return [float(dl), float(gl)]
+        _, loss = TR.make_train_step(cfg, state.model, crit)(state, *batch)
+        return [float(loss)]
+
+    with phase("45 resuming JAX's orbax runs on the card"):
+        for name, step in (("run00022", 70), ("run00020", 23)):
+            run = ROOT / "artifacts" / name / name
+            cfg = config_from_json(str(run / "config.json"))
+            t = cfg.train
+            state, crit, epoch, sec = restored(cfg, run, "cuda")
+            host, hcrit, _, host_sec = restored(cfg, run, "cpu")
+            a, b = tensors(state), tensors(host)
+            equal = sorted(a) == sorted(b) and all(
+                bool(torch.equal(v.cpu(), b[k])) for k, v in a.items())
+            opts = [o for o in (state.optimizer, state.discr_optimizer)
+                    if o is not None]
+            ok = (epoch == step and equal and state.step == host.step
+                  and all(o.count == state.step for o in opts))
+            times[f"{name} restore s"] = sec
+            log(f"[resume {name}] step {epoch} restored in full on the card "
+                f"in {sec:.3f} s (on the CPU {host_sec:.3f} s): step "
+                f"{state.step}, counts {[o.count for o in opts]}, learning "
+                f"rates {[o.learning_rate for o in opts]}; {len(a)} tensors "
+                f"bit for bit the CPU restore: {equal}: "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"{name}: the restored state is wrong")
+
+            dd = DeviceVideoDataset(seqs, upscale_factor=4, device="cuda")
+            dataset = VideoDataset(seqs)
+            samples = dataset.collect_samples(t.samples, t.crop_size,
+                                              t.min_fill_rate,
+                                              np.random.RandomState(t.seed))
+            train_set = DatasetFromSamples(dataset, samples, t.crop_size,
+                                           False, t.test_fraction)
+            rng = np.random.RandomState(45)
+
+            def batches():
+                while True:
+                    yield from dd.batches(train_set.samples, t.batch_size,
+                                          t.crop_size, rng=rng)
+            it = batches()
+            first = next(it)
+            card = first_round(cfg, state, crit, first)
+            cpu = first_round(cfg, host, hcrit, [x.cpu() for x in first])
+            rel = max(abs(x - y) / abs(y) for x, y in zip(card, cpu))
+            worst, share, close = params_close(
+                tensors(state, False), tensors(host, False),
+                state.optimizer.learning_rate)
+            ok = rel <= MAX_TRAIN_LOSS_REL and close
+            log(f"[resume {name}] first step after the restore, card vs "
+                f"CPU: losses {card} vs {cpu} (max rel {rel:.3g}, bound "
+                f"{MAX_TRAIN_LOSS_REL}); parameters: largest |diff| "
+                f"{worst:.3g} x lr (bound {MAX_TRAIN_FAR}), largest share "
+                f"of a leaf beyond {MAX_TRAIN_PARAM} x lr {share:.4f} (bound"
+                f" {MAX_TRAIN_FAR_SHARE}): {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"{name}: card and CPU disagree after "
+                                   f"the restore")
+            del host, hcrit
+            start = state.step
+            if not t.adv_training:
+                train_steps(TR.make_train_step(cfg, state.model, crit),
+                            state, it, 20, f"resume {name}", counters, add)
+                times[f"{name} ms a step"] = FRAME_MS[f"resume {name}"]
+            else:
+                d_step, g_step = TR.make_adv_train_steps(cfg, state.model,
+                                                         crit)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for holder, attr in counters.values():
+                    setattr(holder, attr, 0)
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(21)]
+                vals = []
+                ev[0].record()
+                for r in range(20):
+                    batch = next(it)
+                    _, dl, _, _ = d_step(state, *batch, jax_prng.prng_key(
+                        rng.randint(1 << 31)))
+                    _, gl = g_step(state, *batch)
+                    ev[r + 1].record()
+                    vals.append((dl, gl))
+                torch.cuda.synchronize()
+                launches = {k: getattr(h, a) for k, (h, a) in
+                            counters.items()}
+                expect(launches, {}, f"resume {name}")
+                add(launches)
+                vals = [float(v) for row in vals for v in row]
+                ms = ev[2].elapsed_time(ev[20]) / 18
+                times[f"{name} ms a round"] = ms
+                log(f"[resume {name}] {ms:.2f} ms a D+G round over rounds "
+                    f"3-20 (first {ev[0].elapsed_time(ev[1]):.1f} ms), peak "
+                    f"memory allocated "
+                    f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB;"
+                    f" every loss finite: "
+                    f"{all(math.isfinite(v) for v in vals)}")
+                if not all(math.isfinite(v) for v in vals):
+                    raise RuntimeError(f"{name}: a loss is not finite")
+            if state.step != start + 20:
+                raise RuntimeError(f"{name}: {state.step - start} steps of "
+                                   f"20 taken")
+            del state, crit, dd, it
+
+        run = ROOT / "artifacts" / "run00022" / "run00022"
+        cfg = config_from_json(str(run / "config.json"))
+        t = cfg.train
+        work = Path(tempfile.mkdtemp(prefix="resume_", dir=ROOT / "build"))
+        try:
+            # the run's own flags, its epoch cut to 2 small clips of 3
+            # frames at crop 16 (the train state does not depend on them)
+            # and 64 crops (a fifth of them, 13, for the test batches)
+            argv = ["--dataset", "analytic:sphere", "--numberOfImages", "2",
+                    "--numFrames", "3", "--cropSize", "16", "--samples",
+                    "64", "--batchSize", str(t.batch_size),
+                    "--aoSamples", "16", "--lossBorderPadding", "4",
+                    "--losses", cfg.loss.losses, "--lr",
+                    str(t.learning_rate), "--lrStep", str(t.lr_step),
+                    "--lrGamma", str(t.lr_gamma), "--gradClip",
+                    str(t.grad_clip), "--remat", "--imageEvery", "1",
+                    "--epochs", str(t.epochs + 1), "--runDir",
+                    str(work / "runs"), "--device", "cuda",
+                    "--restore", str(run)]
+            out, sec = counted(lambda: main_video_unshaded.main(argv),
+                               "main_video_unshaded --restore run00022",
+                               counters, {}, add)
+            times["main --restore s"] = sec
+            payload = torch.load(Path(out) / "checkpoints" / "epoch_71.pt",
+                                 map_location="cpu", weights_only=True)
+            events = list((Path(out) / "tensorboard").iterdir())
+            version, values = read_event_file(events[0])
+            scalars = {tag: v for _, tag, v in values
+                       if isinstance(v, float)}
+            images = {tag: v[:3] for _, tag, v in values
+                      if not isinstance(v, float)}
+            lr71 = t.learning_rate * t.lr_gamma ** (70 // t.lr_step)
+            ok = (len(events) == 1 and version == "brain.Event:2"
+                  and {s for s, _, _ in values} == {71}
+                  and set(scalars) == {"train/total_loss", "train/lr",
+                                       "test/total_loss", "test/psnr"}
+                  and all(math.isfinite(v) for v in scalars.values())
+                  and abs(scalars["train/lr"] - lr71) <= 1e-6 * lr71
+                  and "test/shaded" in images
+                  and payload["step"] > 4200
+                  and payload["opt_state"]["count"] == payload["step"])
+            log(f"[main_video_unshaded --restore run00022] epoch 71 in "
+                f"{sec:.1f} s: step {payload['step']} (4200 + "
+                f"{payload['step'] - 4200} batches), Adam's count "
+                f"{payload['opt_state']['count']}; event file "
+                f"{events[0].name}: {version}, step 71 scalars "
+                + ", ".join(f"{k} {v:.6g}" for k, v in sorted(
+                    scalars.items()))
+                + f"; images (h, w, c) {images}: {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError("--restore of a JAX run dir: wrong run "
+                                   "dir or event file")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return times
+
+
 def path_counters() -> dict:
     """Each kernel's launch count: name -> (object, attribute); each
     wrapper adds one where it launches its kernel."""
@@ -3771,7 +4084,6 @@ def main() -> int:
     reference_renderers(grid, counters, add, frame_cfg)
     seqs = training(lm.cfg.model, grid, counters, add)
     shaded_training(lm.cfg.model, seqs, counters, add)
-    del seqs
     parallel_layer(grid, counters, add, frame_cfg)
     orbax_runs(grid, counters, add, frame_cfg)
     import shutil
@@ -3792,9 +4104,13 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     log("phases 39-44, seconds (ms where named): "
         + ", ".join(f"{k} {v:.3f}" for k, v in app_times.items()))
+    resume_times = resume_runs(seqs, counters, add)
+    del seqs
+    log("phase 45, seconds (ms where named): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in resume_times.items()))
 
     log(f"launches over the path runs of phases 4, 6, 7, 10, 11, 15, 16, "
-        f"18, 19, 21, 22 and 25-44: {path_launches}")
+        f"18, 19, 21, 22 and 25-45: {path_launches}")
     kernels_line = []
     for name, source, replaces, row in (
             ("sweep_march", MARCH_SOURCE, MARCH_REPLACES, rows["bfloat16"]),

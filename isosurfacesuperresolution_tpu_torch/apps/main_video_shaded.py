@@ -8,10 +8,11 @@ reference's `mainVideo.py`): the network takes the shaded low-res frame
 configuration and its clips (shaded here by `train.trainer_shaded.
 shade_clip`), and runs on the card unless ``--device cpu`` is given.
 
-A run dir gets ``config.json``, ``info.txt``, ``scalars.jsonl`` (the
-epoch's mean loss a frame under JAX's tag ``train/total_loss``) and
-``checkpoints/epoch_<N>.pt``; `infer.loadedmodel.LoadedModel` reads the
-newest of these.
+A run dir gets ``config.json``, ``info.txt``, the epoch's mean loss a
+frame under JAX's tag ``train/total_loss`` in JAX's TensorBoard event
+file (``tensorboard/events.out.tfevents.*``) and in ``scalars.jsonl``,
+and ``checkpoints/epoch_<N>.pt``; `infer.loadedmodel.LoadedModel` reads
+the newest of these.
 
 Usage:
   python -m isosurfacesuperresolution_tpu_torch.apps.main_video_shaded \\

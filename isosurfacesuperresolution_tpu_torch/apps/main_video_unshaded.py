@@ -8,10 +8,14 @@ npy clip directories or from the renderer in the loop over analytic
 volumes (`data.generation.generate_sequences` with JAX's
 `SequenceConfig` and `RenderConfig` choices, the "sweep" scan renderer).
 
-It runs on the card unless ``--device cpu`` is given.  Scalars go, under
-JAX's tensorboard tags, to ``<run_dir>/scalars.jsonl`` (one JSON object a
-line: tag, value, step); ``--imageEvery`` panels to
-``<run_dir>/images/<tag>_<epoch>.npy``; checkpoints to
+It runs on the card unless ``--device cpu`` is given.  Scalars and
+``--imageEvery`` panels go, under JAX's tags, to JAX's TensorBoard event
+file, ``<run_dir>/tensorboard/events.out.tfevents.*``
+(`utils.tensorboard`), and also to ``<run_dir>/scalars.jsonl`` (one JSON
+object a line: tag, value, step) and ``<run_dir>/images/<tag>_<epoch>.npy``.
+``--restore RUN_DIR`` resumes the port's run dirs and JAX's orbax ones
+alike at the epoch after the newest checkpoint (or ``--restoreEpoch``):
+parameters, optimizer states, learning rate and step count.  Checkpoints go to
 ``<run_dir>/checkpoints/epoch_<N>.pt`` and the generator to
 ``<run_dir>/params.npz`` (JAX's format).  ``--dataset`` also takes a
 ``.dat`` volume or ``descriptor:<file>`` (a line "volume min_iso
@@ -45,6 +49,8 @@ import time
 from typing import List, Optional
 
 import numpy as np
+
+from isosurfacesuperresolution_tpu_torch.utils.tensorboard import EventWriter
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -326,26 +332,32 @@ def _imported_sequences(args, spec: str, device):
 
 
 class ScalarWriter:
-    """JAX's tensorboard scalars as JSON lines, ``scalars.jsonl`` in the
-    run dir; images as ``.npy`` files under ``images/``."""
+    """JAX's TensorBoard log, ``tensorboard/events.out.tfevents.*`` in the
+    run dir (`utils.tensorboard.EventWriter`), and beside it the scalars
+    as JSON lines, ``scalars.jsonl``, and the images as ``.npy`` files
+    under ``images/``."""
 
     def __init__(self, run_dir: str):
         self.run_dir = run_dir
         self._f = open(os.path.join(run_dir, "scalars.jsonl"), "a")
+        self.events = EventWriter(os.path.join(run_dir, "tensorboard"))
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:
         self._f.write(json.dumps({"tag": tag, "value": float(value),
                                   "step": int(step)}) + "\n")
         self._f.flush()
+        self.events.add_scalar(tag, value, step)
 
     def add_image(self, tag: str, image: np.ndarray, step: int) -> None:
         d = os.path.join(self.run_dir, "images")
         os.makedirs(d, exist_ok=True)
         np.save(os.path.join(d, f"{tag.replace('/', '_')}_{step}.npy"),
                 np.asarray(image, np.float32))
+        self.events.add_image(tag, image, step)
 
     def close(self) -> None:
         self._f.close()
+        self.events.close()
 
 
 def _log_test_images(writer, cfg, predict_clip, batch, epoch):

@@ -6,15 +6,19 @@ keys JAX writes), and the generator's ``params.npz`` under JAX's
 "/"-joined Flax key names in Flax's layouts, so that each package reads
 the other's file.
 
-The full train state (generator, optimizer states, discriminators, step,
-epoch) is the port's own format: ``torch.save`` to
+The port saves the full train state (generator, optimizer states,
+discriminators, step, epoch) in its own format: ``torch.save`` to
 ``<run_dir>/checkpoints/epoch_<N>.pt``.  A file, not a digit-named
 directory, so JAX's loader does not take the run dir for an orbax one and
 reads its ``params.npz``.  JAX's orbax checkpoints (``checkpoints/<N>/``)
-are read without orbax (`train/ocdbt.py`): the generator's parameters
-(``--pretrained``, `infer/loadedmodel.LoadedModel`) and the
-discriminators' (``--pretrainedDiscr``); a full-state restore reads the
-port's own files.
+are read without orbax (`train/ocdbt.py`), in full: the generator's
+parameters (``--pretrained``, `infer/loadedmodel.LoadedModel`), the
+discriminators' (``--pretrainedDiscr``) and, for ``--restore``, the whole
+train state (``params``, ``opt_state``, ``discr_params``,
+``discr_opt_state``, ``step``), the optimizers' through
+`train.optim.Optimizer.optax_state_dict`.  Flax trees go through
+`models.generators.params_from_flax`, so BatchNorm's ``batch_stats`` and
+the moments of every leaf land where the parameters do.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -148,16 +152,9 @@ class CheckpointManager:
                                     f"epoch {epoch}")
         return not own, epoch
 
-    def _load(self, epoch: Optional[int]) -> Tuple[dict, int]:
-        orbax, epoch = self._is_orbax(epoch)
-        if orbax:
-            raise NotImplementedError(
-                f"{self.directory}/{epoch}: an orbax step restores the "
-                "generator's and the discriminators' parameters "
-                "(--pretrained, --pretrainedDiscr); a full-state restore "
-                "reads the port's checkpoints/epoch_<N>.pt")
+    def _load(self, epoch: int) -> dict:
         return torch.load(self.path(epoch), map_location="cpu",
-                          weights_only=True), epoch
+                          weights_only=True)
 
     def restore_params(self, model: nn.Module, epoch: Optional[int] = None
                        ) -> Tuple[nn.Module, int]:
@@ -168,8 +165,7 @@ class CheckpointManager:
             flat, _ = read_orbax_generator(self.directory, epoch)
             model.load_state_dict(params_from_flax(flat, _model_cfg(model)))
             return model, epoch
-        payload, epoch = self._load(epoch)
-        model.load_state_dict(payload["params"])
+        model.load_state_dict(self._load(epoch)["params"])
         return model, epoch
 
     def restore_discr_params(self, discriminators: nn.Module,
@@ -189,14 +185,18 @@ class CheckpointManager:
             for name, flat in per_name.items():
                 discriminators[name].load_state_dict(params_from_flax(flat))
             return discriminators, epoch
-        payload, epoch = self._load(epoch)
-        discriminators.load_state_dict(payload["discr_params"])
+        discriminators.load_state_dict(self._load(epoch)["discr_params"])
         return discriminators, epoch
 
     def restore(self, state, epoch: Optional[int] = None):
-        """Load a checkpoint into ``state`` (its modules and optimizers, in
-        place, on their devices) -> (state, epoch)."""
-        payload, epoch = self._load(epoch)
+        """Load a checkpoint, the port's or an orbax step's, into ``state``
+        (its modules and optimizers, in place, on their devices) ->
+        (state, epoch)."""
+        orbax, epoch = self._is_orbax(epoch)
+        if orbax:
+            return _restore_orbax(
+                state, os.path.join(self.directory, str(epoch))), epoch
+        payload = self._load(epoch)
         state.model.load_state_dict(payload["params"])
         state.optimizer.load_state_dict(payload["opt_state"])
         state.discriminators.load_state_dict(payload["discr_params"])
@@ -204,3 +204,128 @@ class CheckpointManager:
             state.discr_optimizer.load_state_dict(payload["discr_opt_state"])
         state.step = int(payload["step"])
         return state, epoch
+
+
+# -- the full train state of an orbax step -----------------------------------
+
+_STATE_KEYS = ("params", "opt_state", "discr_params", "discr_opt_state",
+               "step")
+
+
+def _flax_state(module: nn.Module, flat: Mapping[str, np.ndarray], cfg,
+                where: str) -> Dict[str, torch.Tensor]:
+    """Flax keys -> ``module``'s ``state_dict``, after checking that the
+    saved keys and shapes are the module's own (the first that differs is
+    named as ``where.<key path>``)."""
+    own = flax_from_params(module.state_dict(), cfg)
+    for key in sorted(set(own) ^ set(flat)):
+        path = f"{where}.{key.replace('/', '.')}"
+        if key in own:
+            raise ValueError(f"{path}: missing from the saved state")
+        raise ValueError(f"{path}: not a leaf of the port's "
+                         f"{type(module).__name__}")
+    for key in sorted(own):
+        if tuple(np.shape(flat[key])) != own[key].shape:
+            raise ValueError(
+                f"{where}.{key.replace('/', '.')}: saved shape "
+                f"{tuple(np.shape(flat[key]))}, the port's is "
+                f"{own[key].shape}")
+    return params_from_flax(flat, cfg)
+
+
+def _param_names(module: nn.Module) -> Dict[str, str]:
+    """{state_dict key: named_parameters name} of ``module``'s parameters
+    (they differ under a wrapper such as the spectral-norm one)."""
+    by_id = {id(p): n for n, p in module.named_parameters()}
+    return {k: by_id[id(v)]
+            for k, v in module.state_dict(keep_vars=True).items()
+            if id(v) in by_id}
+
+
+def _split(tree: Mapping[Tuple[str, ...], np.ndarray]) -> Dict[str, dict]:
+    """{first key: {rest of the path: leaf}}."""
+    out: Dict[str, dict] = {}
+    for path, leaf in tree.items():
+        out.setdefault(path[0], {})[path[1:]] = leaf
+    return out
+
+
+def _discr_state(discriminators: nn.ModuleDict,
+                 tree: Mapping[Tuple[str, ...], np.ndarray],
+                 where: str) -> Dict[str, torch.Tensor]:
+    """The discriminators' Flax trees (keyed ``<name>/<collection>/...``)
+    -> the `nn.ModuleDict`'s ``state_dict``, the names checked against
+    the config's."""
+    per_name = _split(tree)
+    for name in sorted(set(per_name) | set(discriminators)):
+        if name not in discriminators:
+            raise ValueError(f"{where}.{name}: a discriminator the config "
+                             "does not have")
+        if name not in per_name:
+            raise ValueError(f"{where}.{name}: missing from the saved state")
+    out = {}
+    for name, sub in per_name.items():
+        flat = {"/".join(p): a for p, a in sub.items()}
+        for k, v in _flax_state(discriminators[name], flat, None,
+                                f"{where}.{name}").items():
+            out[f"{name}.{k}"] = v
+    return out
+
+
+def _restore_orbax(state, step_dir: str):
+    """The whole train state of an orbax step into ``state``: every part
+    is read and checked before any is loaded, so a tree that is not the
+    state's raises (naming the first path that differs) and leaves
+    ``state`` as it was."""
+    paths = orbax_tree_paths(step_dir)
+    tree = {}
+    for name, leaf in read_orbax_step(step_dir).items():
+        if name not in paths:
+            raise ValueError(f"{step_dir}: {name} is not a leaf of the "
+                             "saved tree")
+        tree[paths[name]] = leaf
+    parts = _split(tree)
+    for key in sorted(parts):
+        if key not in _STATE_KEYS:
+            first = ".".join(min(p for p in tree if p[0] == key))
+            raise ValueError(f"{first}: not part of a train state")
+    if () not in parts.get("step", {}):
+        raise ValueError("step: missing from the saved state")
+
+    cfg = _model_cfg(state.model)
+    model_sd = _flax_state(
+        state.model, {"/".join(p): a for p, a in parts.get(
+            "params", {}).items()}, cfg, "params")
+    discr_sd = _discr_state(state.discriminators,
+                            parts.get("discr_params", {}), "discr_params")
+
+    def gen_to_port(flat, where):
+        names = _param_names(state.model)
+        return {names[k]: v for k, v in _flax_state(
+            state.model, flat, cfg, where).items() if k in names}
+
+    def discr_to_port(flat, where):
+        names = _param_names(state.discriminators)
+        return {names[k]: v for k, v in _discr_state(
+            state.discriminators, {tuple(k.split("/")): v
+                                   for k, v in flat.items()}, where).items()
+            if k in names}
+
+    opt_sd = state.optimizer.optax_state_dict(parts.get("opt_state", {}),
+                                              gen_to_port, "opt_state")
+    saved_dopt = parts.get("discr_opt_state", {})
+    if state.discr_optimizer is not None:
+        dopt_sd = state.discr_optimizer.optax_state_dict(
+            saved_dopt, discr_to_port, "discr_opt_state")
+    elif saved_dopt:
+        raise ValueError(
+            f"{'.'.join(('discr_opt_state',) + min(saved_dopt))}: the "
+            "state has no discriminator optimizer")
+
+    state.model.load_state_dict(model_sd)
+    state.discriminators.load_state_dict(discr_sd)
+    state.optimizer.load_state_dict(opt_sd)
+    if state.discr_optimizer is not None:
+        state.discr_optimizer.load_state_dict(dopt_sd)
+    state.step = int(parts["step"][()])
+    return state

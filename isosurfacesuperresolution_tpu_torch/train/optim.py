@@ -20,15 +20,21 @@ they are reproduced here, operation for operation, in float32:
   it is (as injecting it does in optax);
 - the update ``-lr * u`` (rprop ``-u``) is added to the parameter.
 
+``count`` is the injected rule's count, one more each step whatever the
+rule; Adam's bias correction reads it (optax keeps a second, equal count
+in Adam's own state).
+
 The state lives with the optimizer (`state_dict`, `load_state_dict`);
 `load_optax_state` takes optax's arrays (``count``, ``mu``, ``nu`` ...)
-keyed by the port's parameter names.
+keyed by the port's parameter names, and `optax_state_dict` reads a whole
+optax state tree as an orbax step saved it into a `load_state_dict`
+payload.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +44,19 @@ ADAM_EPS = 1e-8
 RMS_DECAY, RMS_EPS = 0.9, 1e-8
 RPROP_ETA_MINUS, RPROP_ETA_PLUS = 0.5, 1.2
 RPROP_MIN_STEP, RPROP_MAX_STEP = 1e-6, 50.0
+
+#: The hyperparameters optax injects beside the learning rate, per rule,
+#: and the values the port's update rules hold (None: the spec's own).
+INJECTED = {
+    "adam": {"b1": None, "b2": None, "eps": ADAM_EPS, "eps_root": 0.0},
+    "rmsprop": {"decay": RMS_DECAY, "eps": RMS_EPS, "initial_scale": 0.0},
+    "rprop": {"eta_minus": RPROP_ETA_MINUS, "eta_plus": RPROP_ETA_PLUS,
+              "min_step_size": RPROP_MIN_STEP,
+              "max_step_size": RPROP_MAX_STEP},
+}
+#: Each rule's per-parameter state, in optax's field order.
+MOMENTS = {"adam": ("mu", "nu"), "rmsprop": ("nu",),
+           "rprop": ("step_sizes", "prev_updates")}
 
 
 def _f32(x: float) -> float:
@@ -67,6 +86,10 @@ class Optimizer:
                 p, self.learning_rate) for p in self.params],
                 "prev_updates": zeros}
 
+    @property
+    def clipped(self) -> bool:
+        return bool(self.spec.grad_clip and self.spec.grad_clip > 0)
+
     def _clip(self, grads: Sequence[torch.Tensor]) -> list:
         max_norm = self.spec.grad_clip
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -79,13 +102,13 @@ class Optimizer:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for "
                              f"{len(self.params)} parameters")
-        if self.spec.grad_clip and self.spec.grad_clip > 0:
+        if self.clipped:
             grads = self._clip(grads)
         rule = self.spec.rule
         lr = self.learning_rate
+        self.count += 1
         if rule == "adam":
             b1, b2 = np.float32(self.spec.b1), np.float32(self.spec.b2)
-            self.count += 1
             c1 = float(np.float32(1) - b1 ** np.float32(self.count))
             c2 = float(np.float32(1) - b2 ** np.float32(self.count))
             for p, g, mu, nu in zip(self.params, grads, self.state["mu"],
@@ -141,6 +164,87 @@ class Optimizer:
             for k, arrays in leaves.items():
                 for n, t in zip(self.names, self.state[k]):
                     t.copy_(torch.as_tensor(np.asarray(arrays[n])))
+
+    def optax_state_dict(self, leaves: Mapping[Tuple[str, ...], np.ndarray],
+                         to_port: Callable[[Dict[str, np.ndarray], str],
+                                           Mapping[str, np.ndarray]],
+                         where: str = "opt_state") -> dict:
+        """A `load_state_dict` payload from optax's state tree as an orbax
+        step holds it: ``leaves`` keyed by their key paths below the state
+        (`train.ocdbt.orbax_tree_paths` without its first key).
+
+        With ``grad_clip`` the state is ``optax.chain``'s pair: ``'0'`` the
+        clip's (empty, no leaves), ``'1'`` the injected rule's; without, the
+        injected rule's is the root.  That holds ``count``, ``hyperparams``
+        (``learning_rate`` and `INJECTED`'s names) and ``inner_state``,
+        whose ``'0'`` is the rule's own state (Adam's ``count``, then
+        `MOMENTS`, each a tree in the parameters' Flax layout).
+        ``to_port(flat, where)`` maps one such tree, flattened to
+        "/"-joined keys, to arrays keyed by this optimizer's names.  A
+        missing leaf, a leaf of another rule, an injected value that is not
+        the port's, or Adam's count unlike the injected one raises
+        ValueError naming the path (``where`` and the keys joined by
+        ".")."""
+        rule = self.spec.rule
+        rest = dict(leaves)
+        root = ("1",) if self.clipped else ()
+
+        def name(path):
+            return ".".join((where,) + tuple(path))
+
+        def take(path):
+            path = root + path
+            if path not in rest:
+                first = sorted(rest)[0] if rest else None
+                raise ValueError(
+                    f"{name(path)}: missing from the saved state (the "
+                    f"port's {rule}{' behind the clip' * self.clipped}"
+                    + (f"; the saved state has {name(first)}"
+                       if first else "; the saved state is empty") + ")")
+            return np.asarray(rest.pop(path))
+
+        count = int(take(("count",)))
+        lr = _f32(take(("hyperparams", "learning_rate")))
+        for hp, held in INJECTED[rule].items():
+            want = np.float32(getattr(self.spec, hp) if held is None
+                              else held)
+            got = np.float32(take(("hyperparams", hp)))
+            if got != want:
+                raise ValueError(
+                    f"{name(root + ('hyperparams', hp))} = {got!s}: "
+                    f"the port's {rule} runs with {hp} = {want!s}")
+        inner = ("inner_state", "0")
+        if rule == "adam":
+            adam_count = int(take(inner + ("count",)))
+            if adam_count != count:
+                raise ValueError(
+                    f"{name(root + inner + ('count',))} = {adam_count} "
+                    f"differs from {name(root + ('count',))} = {count}")
+        state = {}
+        for m in MOMENTS[rule]:
+            prefix = root + inner + (m,)
+            n = len(prefix)
+            flat = {"/".join(p[n:]): rest.pop(p) for p in sorted(rest)
+                    if p[:n] == prefix}
+            arrays = to_port(flat, name(prefix))
+            tensors = []
+            for pname, p in zip(self.names, self.params):
+                if pname not in arrays:
+                    raise ValueError(f"{name(prefix)}: no leaf for the "
+                                     f"parameter {pname}")
+                a = torch.as_tensor(np.asarray(arrays[pname]))
+                if tuple(a.shape) != tuple(p.shape):
+                    raise ValueError(
+                        f"{name(prefix)}: {pname} of shape "
+                        f"{tuple(a.shape)}, the parameter's is "
+                        f"{tuple(p.shape)}")
+                tensors.append(a)
+            state[m] = tensors
+        if rest:
+            raise ValueError(f"{name(sorted(rest)[0])}: not a leaf of the "
+                             f"port's {rule} state")
+        return {"rule": rule, "learning_rate": lr, "count": count,
+                "names": list(self.names), "state": state}
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Guards of the port: it imports nothing of JAX (nor flax, optax, orbax
-or tensorstore) or the JAX package, its entry points run on the card unless asked
+"""Guards of the port: it imports nothing of JAX (nor flax, optax, orbax,
+tensorstore, tensorboardX, tensorboard or protobuf) or the JAX package,
+its entry points run on the card unless asked
 for the CPU, and the kernel wrappers never fall back from a CUDA request
 to the plain version."""
 
@@ -84,8 +85,10 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "orbax", "tensorstore",
-                                    "isosurfacesuperresolution_tpu"))
+                                    "orbax", "tensorstore", "tensorboardX",
+                                    "tensorboard",
+                                    "isosurfacesuperresolution_tpu")
+             or m == "google.protobuf" or m.startswith("google.protobuf."))
 print(" ".join(names))
 print(bad)
 """
@@ -115,7 +118,8 @@ NEW_MODULES = ("infer.planar", "ops.phase_conv", "ops.fused_upsample",
                "apps.main_psnr_crops", "apps.vgg_analysis",
                "apps.discr_test", "losses.learned_features",
                "apps.train_texenc", "apps.adv_evidence",
-               "apps.dataset_viewer", "apps.delete_empty_runs")
+               "apps.dataset_viewer", "apps.delete_empty_runs",
+               "utils.tensorboard")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -129,6 +133,31 @@ def test_port_imports_no_jax_and_no_jax_package():
     for mod in NEW_MODULES:
         assert f"isosurfacesuperresolution_tpu_torch.{mod}" in names
     assert bad == "[]"
+
+
+_WRITE_EVENTS = """
+import sys, tempfile
+import numpy as np
+from isosurfacesuperresolution_tpu_torch.apps.main_video_unshaded import (
+    ScalarWriter)
+w = ScalarWriter(tempfile.mkdtemp())
+w.add_scalar("train/total_loss", 0.5, 1)
+w.add_image("test/shaded", np.zeros((3, 4, 12), np.float32), 1)
+w.close()
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("tensorboardX", "tensorboard")
+             or m == "google.protobuf" or m.startswith("google.protobuf.")))
+"""
+
+
+def test_event_writer_imports_no_tensorboard_or_protobuf():
+    """The trainers' writer writes a scalar and an image into its event
+    file without tensorboardX, tensorboard or protobuf, also not lazily."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _WRITE_EVENTS], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 ENTRY_POINTS = {

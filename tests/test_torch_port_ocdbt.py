@@ -124,8 +124,8 @@ def test_epoch_on_a_params_npz_run_dir_is_ignored_as_in_jax(frame_input):
 
 def test_checkpoint_manager_reads_orbax_steps(tmp_path):
     """An orbax run dir: the newest epoch is its newest step, the
-    generator and the discriminator restore from it, a full-state restore
-    is refused naming orbax, and the port's own file is written beside
+    generator and the discriminator restore from it, and so does the full
+    state (step, both optimizers); the port's own file is written beside
     the steps and read by its epoch."""
     from isosurfacesuperresolution_tpu_torch.config import config_from_json
     from isosurfacesuperresolution_tpu_torch.losses.lossnet_unshaded import (
@@ -157,9 +157,16 @@ def test_checkpoint_manager_reads_orbax_steps(tmp_path):
     np.testing.assert_array_equal(
         crit.discriminators["adv"].conv0.weight.detach().numpy(),
         conv0.transpose(3, 2, 0, 1))
-    state = PT.create_train_state(cfg, model, crit, PT.make_optimizer(cfg))
-    with pytest.raises(NotImplementedError, match="orbax step"):
-        mgr.restore(state)
+    spec = PT.make_optimizer(cfg)
+    state = PT.create_train_state(cfg, model, crit, spec,
+                                  discr_optimizer=spec)
+    state, epoch = mgr.restore(state)
+    assert epoch == 23 and state.step == 4537
+    assert state.optimizer.count == state.discr_optimizer.count == 4537
+    assert state.discr_optimizer.learning_rate == np.float32(1e-5)
+    np.testing.assert_array_equal(
+        state.discriminators["adv"].conv0.weight.detach().numpy(),
+        conv0.transpose(3, 2, 0, 1))
     mgr.save(24, state)
     assert mgr.epochs() == [24] and mgr.latest_epoch() == 24
     restored, epoch = mgr.restore(state)

@@ -279,14 +279,31 @@ def test_checkpoint_manager_round_trip(tmp_path):
 
 
 def test_orbax_checkpoints_are_refused(tmp_path):
-    """A run dir with an orbax step opens (the generator and the
-    discriminators restore from such steps, `tests/test_torch_port_ocdbt.
-    py`); a full-state restore from it is refused, naming orbax, and a
-    digit-named directory without a database is refused too."""
+    """A run dir with an orbax step restores in full (run00022's step 70
+    into a state of its config: the generator, Adam's state behind the
+    clip, the step; held leaf for leaf against JAX's restore in
+    `tests/test_torch_port_resume.py`); a digit-named directory without a
+    database is refused, naming orbax, by every restore."""
+    from isosurfacesuperresolution_tpu_torch.config import config_from_json
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "artifacts", "run00022", "run00022")
+    run = tmp_path / "run"
+    (run / "checkpoints").mkdir(parents=True)
+    os.symlink(os.path.join(src, "checkpoints", "70"),
+               run / "checkpoints" / "70")
+    cfg = config_from_json(os.path.join(src, "config.json"))
+    model = create_network(cfg.model, generator=torch.Generator())
+    crit = LossNetUnshaded(cfg.loss, high_res=cfg.train.crop_size * 4)
+    state = PT.create_train_state(cfg, model, crit, PT.make_optimizer(cfg))
+    state, epoch = PC.CheckpointManager(str(run)).restore(state)
+    assert epoch == 70 and state.step == state.optimizer.count == 4200
+    assert state.optimizer.learning_rate == np.float32(3.125e-06)
+    assert all(float(m.abs().max()) > 0 for m in state.optimizer.state["nu"])
+
     (tmp_path / "checkpoints" / "3").mkdir(parents=True)
     mgr = PC.CheckpointManager(str(tmp_path))
     assert mgr.latest_epoch() == 3
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="orbax"):
         mgr.restore(None)
     with pytest.raises(FileNotFoundError, match="orbax"):
         mgr.restore_params(torch.nn.Linear(1, 1))
@@ -320,7 +337,9 @@ def test_main_writes_a_run_dir(trained):
     run1, run2 = trained
     assert sorted(os.listdir(run1)) == ["checkpoints", "config.json",
                                         "images", "info.txt", "params.npz",
-                                        "scalars.jsonl"]
+                                        "scalars.jsonl", "tensorboard"]
+    assert os.listdir(os.path.join(run1, "tensorboard"))[0].startswith(
+        "events.out.tfevents.")
     assert os.listdir(os.path.join(run1, "checkpoints")) == ["epoch_1.pt"]
     tags = [json.loads(line)["tag"]
             for line in open(os.path.join(run1, "scalars.jsonl"))]
